@@ -1,24 +1,25 @@
-"""Device-trace attribution of one large-BA solve (pallas vs xla matvec):
-sums device op durations inside the jitted run_large_ba call."""
+"""Device-trace attribution of one large-BA solve: sums device op
+durations inside the jitted run_large_ba call."""
 
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from sfm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
 from sfm_tpu.ba import Observations
 from sfm_tpu.ba.large import build_tables, run_large_ba
 from bench_mapping_profile import trace_and_report
 
 
-def main(n_cams=1000, n_lms=100_000, obs_per_lm=6, pallas=1, iters=2,
+def main(n_cams=1000, n_lms=100_000, obs_per_lm=6, iters=2,
          cg_iters=25):
     rng = np.random.default_rng(0)
     X = np.stack([rng.uniform(-50, 50, n_lms), rng.uniform(-10, 10, n_lms),
@@ -48,7 +49,7 @@ def main(n_cams=1000, n_lms=100_000, obs_per_lm=6, pallas=1, iters=2,
         return run_large_ba(
             jnp.asarray(K), rv, tv, X, tables, cam_free=cam_free,
             lm_free=lm_free, iterations=iters, cg_iterations=cg_iters,
-            tol=0.0, pallas_matvec=bool(pallas))
+            tol=0.0)
 
     t0 = time.time()
     out = jax.block_until_ready(jax.jit(solve)(rv0, tv0, X0))
@@ -57,7 +58,7 @@ def main(n_cams=1000, n_lms=100_000, obs_per_lm=6, pallas=1, iters=2,
     out = jax.block_until_ready(jax.jit(solve)(rv0, tv0, X0))
     print(f"second call: {(time.time()-t0)*1000:.1f} ms "
           f"({(time.time()-t0)*1000/iters:.1f} ms/LM-iter)", file=sys.stderr)
-    trace_and_report(f"ba_pallas{pallas}", jax.jit(solve), rv0, tv0, X0)
+    trace_and_report("large_ba", jax.jit(solve), rv0, tv0, X0)
 
 
 if __name__ == "__main__":

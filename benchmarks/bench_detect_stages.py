@@ -2,6 +2,7 @@
 on the real chip.  Each stage loops on-device via lax.scan with a
 data-dependent salt so XLA cannot hoist the body."""
 
+import os
 import sys
 import time
 
@@ -9,12 +10,12 @@ import numpy as np
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from sfm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
 import __graft_entry__ as g
 from sfm_tpu.config import SfMConfig
 from sfm_tpu.engine.state import CameraParams

@@ -1,14 +1,14 @@
 """Wall-clock distributed-BA scaling curve on the virtual CPU mesh
 (VERDICT r3 task 6: an efficiency curve measured end-to-end, even if CPU
-collectives are pessimistic vs ICI).
+collectives are not the device's).
 
 Strong scaling: a FIXED problem (C cameras, L landmarks, kmax obs per
 landmark) solved by build_dist_large_ba on N = 1, 2, 4, 8 shards of an
 --xla_force_host_platform_device_count mesh.  Efficiency(N) =
 T(1) / (N * T(N)).  Virtual devices share one host's cores, so absolute
 times and the curve are pessimistic bounds — the CPU "all-reduce" is a
-memcpy but the shards timeshare compute; the ICI-based model for real
-hardware lives in docs/DIST_BA_SCALING.md.
+memcpy but the shards timeshare compute.  These are CPU times, not GPU
+numbers: chip_smoke.py --four-cards runs the same solver on four cards.
 
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
     python benchmarks/bench_dist_scaling.py [C] [L] [cg_iters]
@@ -31,8 +31,8 @@ import numpy as np
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache_cpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from sfm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 
@@ -141,25 +141,6 @@ def main(C=256, L=65536, cg_iterations=15, iters=2, reps=5):
                           for n, r in zip((2, 4, 8), ratios)) + ")",
         "vs_baseline": None,
     }))
-    if "--record" in sys.argv:
-        from bench import _record
-        _record(
-            "dist_ba_cpu_curve",
-            "distributed-BA strong scaling, virtual CPU mesh vs core-bound",
-            ", ".join(f"N={n}: {times[1]/(n*times[n])*100:.0f}% measured "
-                      f"({100*r:.0f}% of the {min(1., cores/n)*100:.0f}% "
-                      "core-bound)" for n, r in zip((2, 4, 8), ratios)),
-            f"C={C} cams / {L} lms / {L*kmax} obs fixed problem, "
-            f"build_dist_large_ba, {iters} LM x {cg_iterations} CG; this "
-            f"host has {cores} physical cores, so N virtual devices "
-            f"timeshare them and min(1, {cores}/N) is the HARD efficiency "
-            "bound — the measured curve tracking that bound within a few "
-            "percent shows the distributed program itself (partitioning + "
-            "collectives) adds no measurable overhead; per-shard final "
-            "costs agree to <5% (bit-level convergence parity is "
-            "tests/test_parallel.py); the ICI model for real chips is "
-            "docs/DIST_BA_SCALING.md",
-            source="python benchmarks/bench_dist_scaling.py --record")
 
 
 if __name__ == "__main__":

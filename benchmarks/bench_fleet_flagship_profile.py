@@ -19,14 +19,14 @@ import numpy as np
 def main(batch=64, n_frames=30):
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    from sfm_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import __graft_entry__ as g
     from sfm_tpu.engine.state import CameraParams
     from sfm_tpu.synthetic import SpriteScene, strafe_trajectory
     from sfm_tpu.parallel.multiscan import MultiScanDriver
 
-    cfg = g._flagship_cfg()
+    cfg = g.flagship_config()
     h, w = cfg.image_height, cfg.image_width
     K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
                  np.float32)

@@ -3,18 +3,19 @@
 
 Usage: python benchmarks/bench_fleet_flagship_trace.py [batch]"""
 
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from sfm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
 import __graft_entry__ as g
 from sfm_tpu.engine.state import CameraParams
 from sfm_tpu.synthetic import SpriteScene, strafe_trajectory
@@ -26,7 +27,7 @@ prof.REPS = 3
 
 
 def main(batch=64):
-    cfg = g._flagship_cfg()
+    cfg = g.flagship_config()
     h, w = cfg.image_height, cfg.image_width
     K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
                  np.float32)

@@ -3,18 +3,19 @@ the chunked vmapped tracking step and the map-all mapping dispatch.
 
 Usage: python benchmarks/bench_fleet_trace.py [batch]"""
 
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from sfm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
 from sfm_tpu.config import SfMConfig
 from sfm_tpu.engine.state import CameraParams
 from sfm_tpu.synthetic import SpriteScene, strafe_trajectory

@@ -31,8 +31,8 @@ DIST = [-0.25, 0.07, 0.001, -0.0005, 0.0]
 
 def main(n_frames=80):
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    from sfm_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import __graft_entry__ as g
     from sfm_tpu.engine import SfMEngine
@@ -40,7 +40,7 @@ def main(n_frames=80):
     from sfm_tpu.synthetic import (SpriteScene, degrade, strafe_trajectory,
                                    umeyama_ate)
 
-    cfg = g._flagship_cfg()  # platform guard: Pallas BA off when not on TPU
+    cfg = g.flagship_config()
     K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
                  np.float32)
     rng = np.random.default_rng(11)

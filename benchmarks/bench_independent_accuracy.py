@@ -26,8 +26,8 @@ ATE_GATE_PCT = 2.0   # % of trajectory extent
 
 def main(n_frames=60):
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    from sfm_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import __graft_entry__ as g
     from sfm_tpu.engine import SfMEngine
     from sfm_tpu.raytrace import (RayScene, orbit_arc_trajectory, sim3_ate,
@@ -39,7 +39,7 @@ def main(n_frames=60):
     # a property of that sparse scene, not of the policy: at 24 boxes
     # (smartphone-video texture density) the unmodified policy tracks a
     # median ~112 points/frame (measured round 5).
-    cfg = g._flagship_cfg()
+    cfg = g.flagship_config()
     K = np.array([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]],
                  np.float32)
     dist = [-0.22, 0.06, 0.0009, -0.0007, 0.0]

@@ -1,5 +1,6 @@
 """Per-kernel performance benchmarks (SURVEY.md §4.5: per-kernel roofline
-benchmarks for the hot ops).  Run on TPU; prints one JSON line per kernel.
+benchmarks for the hot ops).  Run on the GPU; prints one JSON line per
+kernel.
 
 Usage: python benchmarks/bench_kernels.py"""
 
@@ -29,11 +30,11 @@ def bench(name, f, n=50, **extra):
 def main():
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from sfm_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     from sfm_tpu.features import detect, describe, build_pyramid
     from sfm_tpu.features.bits import pack_bits
     from sfm_tpu.features.match import match_features
-    from sfm_tpu.features.match_pallas import match_features_pallas
     from sfm_tpu.ba import Observations, run_ba
     from sfm_tpu.geometry.triangulate import triangulate_pair
 
@@ -57,9 +58,7 @@ def main():
     v0, v1 = jnp.ones(L, bool), jnp.ones(N, bool)
     kw = dict(min_radius=0.0, max_radius=50.0, max_distance=260.0, ratio=0.9)
     mx = jax.jit(lambda: match_features(d0, xy0, v0, d1, xy1, v1, **kw))
-    mp = jax.jit(lambda: match_features_pallas(d0, xy0, v0, d1, xy1, v1, **kw))
     bench("hamming_match_xla_8192x512", mx)
-    bench("hamming_match_pallas_8192x512", mp)
 
     K = jnp.asarray([[525., 0, 320], [0, 525., 240], [0, 0, 1]],
                     dtype=jnp.float32)

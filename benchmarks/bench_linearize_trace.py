@@ -1,18 +1,19 @@
 """Device-trace attribution of large-BA linearization alone (the dominant
 cost after the matvec fixes: ~29 of 36.5 ms/LM-iter at 1k KF / 100k lm)."""
 
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from sfm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
 from sfm_tpu.ba import Observations
 from sfm_tpu.ba.large import (build_tables, _blocks_lm_major,
                               _blocks_cam_major)

@@ -17,8 +17,8 @@ from bench_longscan import LARGE, make_scene
 
 def main(n_frames=320):
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    from sfm_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     from sfm_tpu.config import SfMConfig
     from sfm_tpu.engine import SfMEngine
 

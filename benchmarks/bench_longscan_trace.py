@@ -14,8 +14,8 @@ sys.path.insert(0, os.path.dirname(__file__))
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+from sfm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 
@@ -62,7 +62,7 @@ def _grouped_report(tag):
     by_name = collections.defaultdict(float)
     for e in ev:
         if e.get("ph") == "X" and "dur" in e and \
-                "TPU" in pids.get(e["pid"], ""):
+                "/device:" in pids.get(e["pid"], ""):
             n = e["name"]
             if n.startswith("jit_") or n.startswith("while") or \
                     n.startswith("cond"):

@@ -76,8 +76,8 @@ def centers_of(rv, tv):
 
 def main(n_frames=1280, covis=True, turns=1.12, scale=True):
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+    from sfm_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     from sfm_tpu.config import SfMConfig
     from sfm_tpu.engine import SfMEngine

@@ -11,18 +11,19 @@ import collections
 import glob
 import gzip
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from sfm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
 import __graft_entry__ as g
 from sfm_tpu.config import SfMConfig
 from sfm_tpu.engine.state import CameraParams, init_state
@@ -68,7 +69,8 @@ def trace_and_report(tag, fn, *args):
     cnt = collections.defaultdict(int)
     args_of = {}
     for e in ev:
-        if e.get("ph") == "X" and "dur" in e and "TPU" in pids.get(e["pid"], ""):
+        if e.get("ph") == "X" and "dur" in e and \
+                "/device:" in pids.get(e["pid"], ""):
             tot[e["name"]] += e["dur"]
             cnt[e["name"]] += 1
             a = e.get("args") or {}

@@ -16,7 +16,8 @@ import numpy as np
 def main(batch=64, n_frames=48):
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from sfm_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     from sfm_tpu.config import SfMConfig
     from sfm_tpu.engine.state import CameraParams
     from sfm_tpu.synthetic import SpriteScene, strafe_trajectory

@@ -1,13 +1,14 @@
 """PnP RANSAC solver comparison on the real chip: 6-pt DLT (eigh-based)
 vs P3P minimal (closed-form).  The tracking-step profile attributes
-~1.6 ms/frame to ransac_pnp — per-hypothesis 12x12 eigh batches are a
-known TPU weak spot; P3P replaces them with a quartic solve.
+a large share to ransac_pnp — per-hypothesis 12x12 eigh batches are
+costly inside a vmap; P3P replaces them with a quartic solve.
 
 Synthetic task matches the flagship operating point: 512 candidate
 matches, ~35% outliers, prior pose available (one-frame-old motion).
 Prints ms/call and rotation/translation errors per solver.
 """
 
+import os
 import sys
 import time
 
@@ -15,12 +16,12 @@ import numpy as np
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from sfm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
 from sfm_tpu.ransac import ransac_pnp
 from sfm_tpu.np_geometry import rodrigues_np
 

@@ -17,13 +17,14 @@ gt interpolation, engine loop and ATE math of the TUM path — everything
 except the photometric statistics of real camera frames (which the
 container cannot provide; docs/ROADMAP.md item 2).
 
-Usage: python benchmarks/bench_tum_format.py [n_frames] [--record]
+Usage: python benchmarks/bench_tum_format.py [n_frames]
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
@@ -56,12 +57,12 @@ def _quat_from_R(R):
     return qx, qy, qz, qw
 
 
-def main(n_frames=60, record=False):
+def main(n_frames=60):
     from PIL import Image
     from sfm_tpu.raytrace import RayScene, orbit_arc_trajectory, _rot
     from sfm_tpu.io.tum import TUM_INTRINSICS
 
-    work = "/tmp/sfm_tum_seq"
+    work = os.path.join(tempfile.gettempdir(), "sfm_tum_seq")
     rgb_dir = os.path.join(work, "rgb")
     os.makedirs(rgb_dir, exist_ok=True)
 
@@ -126,27 +127,10 @@ def main(n_frames=60, record=False):
     }))
     ok = (out.get("status") == 1 and out.get("n_keyframes", 0) >= 5
           and ate_pct <= ATE_GATE_PCT)
-    if record and ok:
-        from bench import _record
-        _record(
-            "tum_format", "TUM dataset surface, end-to-end "
-            "(loader + cli tum + ATE)",
-            f"ATE {ate_pct:.2f}% of {extent:.1f} m, "
-            f"{out.get('n_keyframes')} KFs, RUNNING at end",
-            f"{n_frames}-frame ray-traced scan written as a bit-exact TUM "
-            "layout (rgb/*.png + rgb.txt + groundtruth.txt with "
-            "quaternion camera-to-world poses at +5 ms offset "
-            "timestamps), scanned via the real `cli tum` subprocess with "
-            "fr3 intrinsics — exercises PNG decode, index parsing, "
-            "timestamp association, gt interpolation and the sim(3) ATE "
-            "path; real-imagery photometrics remain environment-blocked "
-            "(no dataset mountable)",
-            source="python benchmarks/bench_tum_format.py --record")
     if not ok:
         print("TUM-FORMAT GATE FAILED", file=sys.stderr)
         raise SystemExit(1)
 
 
 if __name__ == "__main__":
-    args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
-    main(*args, record="--record" in sys.argv)
+    main(*[int(a) for a in sys.argv[1:]])

@@ -6,6 +6,7 @@ engine's own map geometry, per-hypothesis PnP inlier counts.
 JAX_PLATFORMS=cpu python benchmarks/diag_reloc.py
 """
 
+import os
 import sys
 
 import numpy as np
@@ -14,7 +15,7 @@ import numpy as np
 def main():
     import jax
     import jax.numpy as jnp
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as g
     from sfm_tpu.config import SfMConfig
     from sfm_tpu.engine.state import CameraParams, init_state, make_frame

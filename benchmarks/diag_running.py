@@ -12,6 +12,7 @@ Usage: JAX_PLATFORMS=cpu python benchmarks/diag_running.py [key=val ...]
 Prints per-chunk status strings + the 128-frame RUNNING count.
 """
 
+import os
 import sys
 
 import numpy as np
@@ -20,7 +21,7 @@ import numpy as np
 def run(overrides):
     import jax
     import jax.numpy as jnp
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as g
     from sfm_tpu.config import SfMConfig
     from sfm_tpu.engine.state import CameraParams, init_state

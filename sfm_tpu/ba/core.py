@@ -59,8 +59,8 @@ def _assemble(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
     ``repeat(arange(C), O // C)`` layout that observations_from_keyframes
     emits) every index-space reduction is scatter-free: camera-side sums
     are plain reshape-reductions and landmark-side sums ride one one-hot
-    MXU matmul — scatter-adds over 16k observations serialize on TPU
-    (~8 ms/LM-iter at mapping shapes, see benchmarks)."""
+    matmul (scatter-adds over 16k observations serialized on the backend
+    this was first tuned for)."""
     C = rvec.shape[0]
     L = xyz.shape[0]
     R = exp_so3(rvec)
@@ -72,8 +72,8 @@ def _assemble(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
     rw = r * w[:, None]
 
     # per-observation block products as broadcast multiply-reduces (tiny
-    # batched dot_generals lower to slow convolution kernels on TPU — see
-    # residuals.bmm_small)
+    # batched dot_generals lowered to slow convolution kernels on the
+    # first backend — see residuals.bmm_small)
     AtA = jnp.sum(A[:, :, :, None] * A[:, :, None, :], axis=1)  # [O,6,6]
     BtB = jnp.sum(B[:, :, :, None] * B[:, :, None, :], axis=1)  # [O,3,3]
     AtB = jnp.sum(A[:, :, :, None] * B[:, :, None, :], axis=1)  # [O,6,3]
@@ -131,8 +131,8 @@ def _damp(M, lam):
 
 
 def inv3_sym(M):
-    """Closed-form inverse of symmetric 3x3 blocks [..., 3, 3] — an order
-    of magnitude faster than batched LU on TPU for the landmark blocks."""
+    """Closed-form inverse of symmetric 3x3 blocks [..., 3, 3] (no batched
+    LU custom call for the landmark blocks)."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     e, f = M[..., 1, 1], M[..., 1, 2]
     i = M[..., 2, 2]
@@ -252,9 +252,8 @@ def run_ba(K, rvec, tvec, xyz, obs: Observations, *,
 def _onehot_matmul_T(idx, n, vals):
     """Scatter-free segment-sum: out[i] = sum_{o: idx[o]==i} vals[o].
     idx [O] int32, vals [O, d] -> [n, d].  The one-hot operand is a fused
-    iota-compare feeding the MXU — scatter-adds into [n, d] serialize on
-    TPU while this runs at matmul speed (same trick as ba/large.py's
-    coupling ops)."""
+    iota-compare feeding a matmul (same trick as ba/large.py's coupling
+    ops)."""
     E = (idx[:, None] == jnp.arange(n, dtype=jnp.int32)).astype(jnp.float32)
     return jax.lax.dot_general(
         E, vals, (((0,), (0,)), ((), ())),
@@ -273,7 +272,7 @@ def _assemble_cg(K, rvec, tvec, xyz, obs: Observations, cam_free, lm_free,
                  huber_delta: float):
     """Normal-equation blocks WITHOUT materializing the [C, L] coupling:
     U [C,6,6], V [L,3,3], per-observation W_o [O,6,3], g_cam, g_lm, cost.
-    All index-space reductions are one-hot MXU matmuls (scatter-free)."""
+    All index-space reductions are one-hot matmuls (scatter-free)."""
     C = rvec.shape[0]
     L = xyz.shape[0]
     R = exp_so3(rvec)
@@ -317,12 +316,9 @@ def run_ba_cg(K, rvec, tvec, xyz, obs: Observations, *,
     block-Jacobi PCG through per-observation tables — no [C, L] coupling
     tensor, no scatters.  Same contract as run_ba(mode=STRUCT_AND_POSE).
 
-    Crossover note (measured on TPU v5-lite): at flagship mapping shapes
-    (C=32, L=8k, O=16k) the one-hot segment ops pad their 3-wide payloads
-    to the 128-lane MXU tile, so 15 CG iterations cost MORE than run_ba's
-    exact dense solve (~12 vs ~7 ms/LM-iter) — prefer run_ba there.  This
-    path wins when the dense [6C, 6C] Schur complement or the [C, L]
-    coupling no longer fits: C >~ 128 with large maps (and see
+    At flagship mapping shapes (C=32, L=8k, O=16k) prefer run_ba's exact
+    dense solve; this path is for when the dense [6C, 6C] Schur complement
+    or the [C, L] coupling no longer fits: C >~ 128 with large maps (and see
     ba/large.py + parallel/dist_large_ba.py for the 1k-camera/pod-scale
     dual-table formulation)."""
     C = rvec.shape[0]

@@ -15,8 +15,8 @@ layout that makes it scatter-free:
   - V, g_lm, W^T x: sum over the landmark-major axis;
   - W z (per camera): sum over the camera-major axis with z gathered.
 Jacobian blocks are computed in both layouts (cheap, elementwise) — this
-trades 2x flops on tiny closed forms for the removal of every scatter,
-which is the right trade on TPU.  Gauge/padding freezes via masks.
+trades 2x flops on tiny closed forms for the removal of every scatter.
+Gauge/padding freezes via masks.
 """
 
 from __future__ import annotations
@@ -128,9 +128,8 @@ def build_tables_device(obs: Observations, n_cams: int, n_lms: int,
 
 def _rank_in_group(idx, live, n):
     """Per-observation slot = rank within its equal-index group (stable).
-    Run starts via cummax — jnp.searchsorted lowers to a per-element
-    binary-search while-loop with serialized gathers (~71 ms at 262k obs
-    on TPU; this is ~0.1 ms)."""
+    Run starts via a cummax over the sorted keys (one associative scan, no
+    per-element binary search)."""
     O = idx.shape[0]
     key = jnp.where(live, idx, n).astype(jnp.int32)
     order = jnp.argsort(key, stable=True)
@@ -143,17 +142,12 @@ def _rank_in_group(idx, live, n):
 
 
 def build_lm_tables_device(obs: Observations, n_lms: int, kmax: int):
-    """Landmark-major tables ONLY, as one fused payload scatter.
-
-    The fused-Pallas large-BA path (pallas_matvec + fused_linearize)
-    never reads the camera-major tables, but ``build_tables_device``
-    scatters all six — and 262k-row TPU scatters serialize (~10 ms for
-    each f32 payload; over half a 512-KF mapping pass went to table
-    building).  This builder drops the camera side entirely and packs
-    (cam, u, v, w) into a single [O, 4] f32 scatter (camera indices
-    < 2^24 are exact in f32).  The overflow rule is slot < kmax only
-    (no camera-side nmax coupling — there is no camera table to keep
-    consistent).  Returns (lm_cam, lm_uv, lm_w, n_dropped)."""
+    """Landmark-major tables ONLY, as one fused payload scatter — for
+    callers that never read the camera-major side (loop-closure
+    re-triangulation).  Packs (cam, u, v, w) into a single [O, 4] f32
+    scatter (camera indices < 2^24 are exact in f32).  The overflow rule
+    is slot < kmax only (no camera table to keep consistent).  Returns
+    (lm_cam, lm_uv, lm_w, n_dropped)."""
     live = obs.w > 0
     slot_l = _rank_in_group(obs.lm_idx, live, n_lms)
     keep = live & (slot_l < kmax)
@@ -168,43 +162,21 @@ def build_lm_tables_device(obs: Observations, n_lms: int, kmax: int):
             table[..., 3], n_dropped)
 
 
-def _onehot_f32(idx, n):
-    """One-hot rows for index table ``idx`` (any shape) -> [..., n] f32.
-    XLA fuses the iota compare into the consuming matmul's operand read,
-    so this is an MXU-side gather/scatter: measured 2x faster than row
-    gathers of skinny [C, 6] operands at C<=~4k (benchmarks/
-    bench_gather_variants.py)."""
-    return (idx[..., None] == jnp.arange(n, dtype=jnp.int32)).astype(
-        jnp.float32)
-
-
-def make_coupling_ops(tables: ObsTables, n_cams: int, *,
-                      onehot_threshold: int = 4096):
-    """The two table-layout contractions of the implicit Schur complement:
+def make_coupling_ops(tables: ObsTables):
+    """The two table-layout contractions of the implicit Schur complement,
+    each a row gather feeding a dense sum over a table axis:
       wT_x(W_l, x):      t[l] = sum_k W_l[l,k]^T x[lm_cam[l,k]]   ([L,3])
-      w_z(W_l, W_c, z):  y[c] = sum_{l,k: lm_cam==c} W_l[l,k] z[l] ([C,6])
-    Returns (wT_x, w_z, needs_cam_major).  For small camera counts both
-    directions run as one-hot einsums on the MXU from the landmark-major
-    table alone (the camera-major W_c is never needed: needs_cam_major is
-    False and w_z ignores its W_c argument)."""
-    use_onehot = n_cams <= onehot_threshold
+      w_z(W_c, z):       y[c] = sum_j W_c[c,j] z[cam_lm[c,j]]      ([C,6])
+    (A one-hot-matmul form of both ran 2.6x slower per LM iteration at
+    32 cameras and 26x slower at 1k cameras on the H100; PERF.md.)"""
 
-    if use_onehot:
-        def wT_x(W_l, x):
-            E = _onehot_f32(tables.lm_cam, n_cams)
-            return jnp.einsum("lkab,lkc,ca->lb", W_l, E, x)
+    def wT_x(W_l, x):
+        return jnp.einsum("lkab,lka->lb", W_l, x[tables.lm_cam])
 
-        def w_z(W_l, W_c, z):
-            E = _onehot_f32(tables.lm_cam, n_cams)
-            return jnp.einsum("lkab,lb,lkc->ca", W_l, z, E)
-    else:
-        def wT_x(W_l, x):
-            return jnp.einsum("lkab,lka->lb", W_l, x[tables.lm_cam])
+    def w_z(W_c, z):
+        return jnp.einsum("cjab,cjb->ca", W_c, z[tables.cam_lm])
 
-        def w_z(W_l, W_c, z):
-            return jnp.einsum("cjab,cjb->ca", W_c, z[tables.cam_lm])
-
-    return wT_x, w_z, not use_onehot
+    return wT_x, w_z
 
 
 def _huber_w(r, delta):
@@ -218,9 +190,7 @@ def _blocks_lm_major(K, R, tvec, xyz, tables: ObsTables,
                      cam_free_f, lm_free_f, huber_delta):
     """Landmark-major blocks [L, kmax, ...].  The landmark side is a
     broadcast view (no gather); the camera side is ONE packed [C, 13]
-    gather (R | t | cam_free) instead of three separate per-slot gathers
-    — the per-observation gathers dominated linearization
-    (benchmarks/bench_ba_trace.py: ~65 of 101 ms/LM-iter)."""
+    gather (R | t | cam_free) instead of three separate per-slot gathers."""
     C = R.shape[0]
     packed = jnp.concatenate(
         [R.reshape(C, 9), tvec, cam_free_f[:, None]], axis=1)  # [C, 13]
@@ -259,89 +229,18 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *,
                  cg_iterations: int = 25, lam0: float = 1e-3,
                  lam_up: float = 4.0, lam_down: float = 2.0,
                  huber_delta: float = 0.0, tol: float = 1e-4,
-                 onehot_threshold: int = 4096, precond: str = "jacobi_u",
-                 pallas_matvec: bool = False, pallas_tile: int = 256,
-                 pallas_precision: str = "bf16",
-                 pallas_interpret: bool = False,
-                 schur_plan=None, fused_linearize: bool = False
+                 precond: str = "jacobi_u"
                  ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, BAStats]:
     """Implicit-Schur LM: outer damping loop, inner block-Jacobi PCG on the
-    reduced camera system.  All reductions are table-axis sums.
-
-    pallas_matvec=True routes every coupling contraction (CG matvec, rhs,
-    back-substitution) through the fused Pallas kernel (schur_pallas.py),
-    which reads the W table from HBM once per apply instead of
-    materializing one-hot operands; pallas_interpret runs that kernel in
-    interpreter mode (CPU tests).  pallas_precision sets the one-hot dot
-    precision: "bf16" (default) rounds only the camera-vector operand to
-    bf16 inside the gather/scatter matmuls — the matvec just steers CG
-    search directions (LM accept/reject uses exact f32 costs), and at
-    1k KFs / 100k landmarks it converges identically to the exact modes
-    at 92 vs 128 ("bf16x3") vs 175 ("highest") ms/LM-iter."""
+    reduced camera system.  All reductions are table-axis sums."""
     C = rvec.shape[0]
-    L = xyz.shape[0]
-
-    # camera-window plan (schur_pallas.SchurPlan): permute the landmark
-    # axis into camera-locality order so each Pallas tile touches a narrow
-    # camera window; inverted on exit.  Exact for any problem.
-    unpermute = None
-    if pallas_matvec and schur_plan is not None:
-        assert schur_plan.tile == pallas_tile, \
-            "SchurPlan tile must match pallas_tile"
-        perm = jnp.asarray(schur_plan.perm)
-        inv_perm = jnp.asarray(schur_plan.inv_perm)
-        tables = ObsTables(
-            lm_cam=tables.lm_cam[perm], lm_uv=tables.lm_uv[perm],
-            lm_w=tables.lm_w[perm],
-            cam_lm=inv_perm[tables.cam_lm],
-            cam_uv=tables.cam_uv, cam_w=tables.cam_w)
-        xyz = xyz[perm]
-        lm_free = lm_free[perm]
-        unpermute = lambda x: x[inv_perm]
 
     cam_free_f = cam_free.astype(jnp.float32)
     lm_free_f = lm_free.astype(jnp.float32)
-    if pallas_matvec:
-        # the Pallas operator serves matvec/rhs/backsub; the XLA coupling
-        # closures would be dead code — and building them traces the
-        # camera-major tables, which the engine's fused path no longer
-        # constructs (build_lm_tables_device passes dummies)
-        wT_x = w_z = None
-        needs_cam_major = False
-    else:
-        wT_x, w_z, needs_cam_major = make_coupling_ops(
-            tables, C, onehot_threshold=onehot_threshold)
-    # the schur_diag preconditioner needs the camera-major W blocks
-    keep_cam_major = needs_cam_major or precond == "schur_diag"
-
-    # fused Pallas linearization: one kernel pass emits wt (already in the
-    # Schur-apply tile layout), tiled V|g_lm, and the U/g_cam/cost camera
-    # accumulator — replaces both _blocks_* passes, the [L,kmax,6,3] HBM
-    # round-trip AND the per-LM-iter wt packing (linearize_pallas.py)
-    lin_t = None
-    if fused_linearize:
-        assert pallas_matvec, "fused_linearize requires pallas_matvec"
-        assert precond != "schur_diag", \
-            "fused_linearize emits no camera-major W blocks"
-        from .linearize_pallas import (build_lin_tables, fused_blocks,
-                                       damped_vinv_tiled)
-        if schur_plan is not None:
-            lin_t = build_lin_tables(
-                tables.lm_cam, tables.lm_uv, tables.lm_w, C,
-                tile=pallas_tile, base=schur_plan.base,
-                window=schur_plan.window, pad_width=schur_plan.pad_width)
-        else:
-            lin_t = build_lin_tables(tables.lm_cam, tables.lm_uv,
-                                     tables.lm_w, C, tile=pallas_tile)
+    wT_x, w_z = make_coupling_ops(tables)
 
     def linearize(rvec, tvec, xyz):
         R = exp_so3(rvec)
-        if fused_linearize:
-            wt, vg_t, U, g_cam, cost = fused_blocks(
-                K, R, tvec, xyz, lm_free_f, cam_free_f, lin_t,
-                precision="bf16x3", huber_delta=huber_delta,
-                interpret=pallas_interpret)
-            return (wt, vg_t, U, g_cam), cost
         # landmark-major blocks (landmark side broadcast, camera side one
         # packed gather) / camera-major blocks (vice versa)
         r_l, A_l, B_l, rw_l, w_l = _blocks_lm_major(
@@ -358,14 +257,14 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *,
         g_lm = -jnp.sum(B_l * rw_l[..., None], axis=(1, 2))  # [L,3]
         W_l = jnp.sum(A_l[..., :, None] * B_l[..., None, :],
                       axis=2)                                # [L,kmax,6,3]
-        W_c = (jnp.sum(A_c[..., :, None] * B_c[..., None, :], axis=2)
-               if keep_cam_major else None)                  # [C,nmax,6,3]
+        W_c = jnp.sum(A_c[..., :, None] * B_c[..., None, :],
+                      axis=2)                                # [C,nmax,6,3]
         cost = jnp.sum(jnp.sum(r_l * r_l, -1) * w_l)
         return (U, V, W_l, W_c, g_cam, g_lm), cost
 
     def _solve_and_accept(carry, U, matvec, rhs, backsub, M_inv=None):
-        """Shared LM-iteration tail: block-Jacobi PCG on the reduced
-        camera system, back-substitution, accept/reject + relinearize."""
+        """LM-iteration tail: block-Jacobi PCG on the reduced camera
+        system, back-substitution, accept/reject + relinearize."""
         rvec, tvec, xyz, blocks, cost, lam, accepted, done = carry
         if M_inv is None:
             # block-Jacobi preconditioner: damped U block inverses
@@ -416,66 +315,26 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *,
 
     def body(carry):
         rvec, tvec, xyz, blocks, cost, lam, accepted, done = carry
-        if fused_linearize:
-            from .linearize_pallas import damped_vinv_tiled
-            from .schur_pallas import SchurOperator
-            wt, vg_t, U, g_cam = blocks
-            vinv_t = damped_vinv_tiled(vg_t, lam)
-            g_t = jnp.pad(vg_t[:, 9:12], ((0, 0), (0, 5), (0, 0)))
-            op = SchurOperator.from_packed(
-                wt, lin_t.cams_t, lin_t.base_t, L=L, kmax=lin_t.kmax,
-                tile=pallas_tile, precision=pallas_precision,
-                interpret=pallas_interpret, window=lin_t.window,
-                pad_width=lin_t.pad_width)
-            op.vinv_t = vinv_t
-
-            def matvec(x):
-                Ux = jnp.einsum("cab,cb->ca", _damp(U, lam), x)
-                return Ux - op.w_vinv_wt_x(x)
-
-            rhs = g_cam - op.w_vinv_g_packed(g_t, C)
-            return _solve_and_accept(
-                carry, U, matvec, rhs,
-                lambda d_cam: op.back_substitute_packed(g_t, d_cam))
         U, V, W_l, W_c, g_cam, g_lm = blocks
         Vinv = inv3_sym(_damp(V, lam))
 
-        if pallas_matvec:
-            from .schur_pallas import SchurOperator
-            plan_kw = {}
-            if schur_plan is not None:
-                plan_kw = dict(base=schur_plan.base,
-                               window=schur_plan.window,
-                               pad_width=schur_plan.pad_width)
-            op = SchurOperator(W_l, tables.lm_cam, tile=pallas_tile,
-                               precision=pallas_precision,
-                               interpret=pallas_interpret, **plan_kw)
-            op.set_vinv(Vinv)
+        def matvec(x):
+            Ux = jnp.einsum("cab,cb->ca", _damp(U, lam), x)
+            t = wT_x(W_l, x)
+            z = bmv_small(Vinv, t)
+            return Ux - w_z(W_c, z)
 
-            def matvec(x):
-                Ux = jnp.einsum("cab,cb->ca", _damp(U, lam), x)
-                return Ux - op.w_vinv_wt_x(x)
-
-            rhs = g_cam - op.w_vinv_g(g_lm, C)
-        else:
-            def matvec(x):
-                Ux = jnp.einsum("cab,cb->ca", _damp(U, lam), x)
-                t = wT_x(W_l, x)
-                z = bmv_small(Vinv, t)
-                return Ux - w_z(W_l, W_c, z)
-
-            # rhs = g_cam - W V^-1 g_lm
-            zg = bmv_small(Vinv, g_lm)
-            rhs = g_cam - w_z(W_l, W_c, zg)
+        # rhs = g_cam - W V^-1 g_lm
+        zg = bmv_small(Vinv, g_lm)
+        rhs = g_cam - w_z(W_c, zg)
 
         if precond == "schur_diag":
             Ud = _damp(U, lam)
             # block-Jacobi on the EXACT diagonal of S = damp(U) - W V^-1 W^T
             # (not just on U): S_cc = damp(U_cc) - sum_j W_cj Vinv_j W_cj^T.
-            # NEGATIVE RESULT at the 1k-KF bench (docs/BENCH_NOTES.md): the
-            # build costs ~9 ms/LM-iter (Vinv gather + fused reduce) and the
-            # PCG iteration count does NOT drop on banded camera graphs —
-            # kept as an option for problems with hub cameras
+            # the PCG iteration count did not drop on the banded camera
+            # graphs of the 1k-KF bench; kept for problems with hub
+            # cameras
             Vinv_c = Vinv[tables.cam_lm]             # [C, nmax, 3, 3]
             WV = bmm_small(W_c, Vinv_c)              # [C, nmax, 6, 3]
             P = jnp.sum(WV[..., :, None, :] * W_c[..., None, :, :],
@@ -485,11 +344,7 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *,
             M_inv = None  # default block-Jacobi built in _solve_and_accept
 
         # back-substitution: d_lm = Vinv (g_lm - W^T d_cam)
-        if pallas_matvec:
-            backsub = lambda d_cam: op.back_substitute(g_lm, d_cam)
-        else:
-            backsub = lambda d_cam: bmv_small(Vinv,
-                                              g_lm - wT_x(W_l, d_cam))
+        backsub = lambda d_cam: bmv_small(Vinv, g_lm - wT_x(W_l, d_cam))
         return _solve_and_accept(carry, U, matvec, rhs, backsub, M_inv)
 
     blocks0, cost0 = linearize(rvec, tvec, xyz)
@@ -501,18 +356,5 @@ def run_large_ba(K, rvec, tvec, xyz, tables: ObsTables, *,
         0, iterations, loop_body,
         (rvec, tvec, xyz, blocks0, cost0, jnp.asarray(lam0, jnp.float32),
          jnp.asarray(0, jnp.int32), jnp.asarray(False)))
-    if unpermute is not None:
-        xyz = unpermute(xyz)
     return rvec, tvec, xyz, BAStats(cost0, cost, lam, accepted)
-
-
-def _lm_self(L, lm_cam):
-    """Landmark self-indices broadcast to the lm-major table shape."""
-    return jnp.broadcast_to(
-        jnp.arange(L, dtype=jnp.int32)[:, None], lm_cam.shape)
-
-
-def _cam_self(C, cam_lm):
-    return jnp.broadcast_to(
-        jnp.arange(C, dtype=jnp.int32)[:, None], cam_lm.shape)
 

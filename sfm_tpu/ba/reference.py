@@ -1,6 +1,6 @@
 """Independent float64 NumPy reference bundle-adjustment solver.
 
-This is the accuracy anchor for every TPU solver in this package
+This is the accuracy anchor for every JAX solver in this package
 (BASELINE.json's "ATE vs Ceres baseline" criterion): a self-contained
 dense-Schur Levenberg-Marquardt implementation of the same problem Ceres
 solves for the reference (auto-diff reprojection functors +

@@ -12,7 +12,7 @@ Pose increments use the LOCAL left-multiplicative parameterization
     d(cam)/d(X)  = R
 and the pixel chain rule d(uv)/d(cam) is the standard pinhole 2x3.
 This is equivalent at the optimum to Ceres's global angle-axis blocks but
-keeps every Jacobian a tiny closed form — the shape the MXU wants.
+keeps every Jacobian a tiny closed form that fuses elementwise.
 """
 
 from __future__ import annotations
@@ -27,10 +27,10 @@ from ..geometry.rotations import exp_so3, hat, log_so3
 
 def bmm_small(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched tiny matmul [..., m, k] @ [..., k, n] as a broadcast
-    multiply-reduce.  XLA lowers batched dot_generals with m, n <= 6 to
-    convolution-style kernels that run ~70x off the bandwidth roofline on
-    TPU (measured in benchmarks/bench_ba_trace.py); the elementwise form
-    fuses into one VPU pass."""
+    multiply-reduce.  XLA lowered batched dot_generals with m, n <= 6 to
+    convolution-style kernels far off the bandwidth roofline on the backend
+    this was first tuned for; the elementwise form fuses into one pass.
+    Whether the GPU needs it is open (ROADMAP Design 5)."""
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
 
@@ -112,8 +112,7 @@ def huber_weights(r: jnp.ndarray, delta: float) -> jnp.ndarray:
 
 def apply_pose_update(rvec, tvec, dw, dt):
     """Left-multiplicative pose update: R <- exp(dw) R, t <- t + dt.
-    (bmm_small, not @: batched 3x3 dot_generals lower to off-roofline
-    convolution kernels on TPU — see bmm_small's note.)"""
+    (bmm_small, not @ — see bmm_small's note.)"""
     R_new = bmm_small(exp_so3(dw), exp_so3(rvec))
     return log_so3(R_new), tvec + dt
 

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU SfM engine.
+"""Typed configuration for the SfM engine.
 
 The reference hard-codes every policy constant in constructors
 (/root/reference/CSfM.cpp:30-54, CTracker.cpp:25-45, CMap.cpp:25-29,
@@ -33,17 +33,17 @@ class SfMConfig:
     feature_dtype: str = "float32"  # dense detector/descriptor compute dtype
                                     # ("bfloat16" halves the memory-bound
                                     # detection cost; geometry stays f32)
-    patch_int8: bool = False       # int8 MXU path for the descriptor's
-                                   # patch-extraction selection matmul
-                                   # (the dominant fleet tracking term):
-                                   # 2x the bf16 MXU rate; quantization
-                                   # is 1/127 px of lerp + ~0.5 intensity
-                                   # level, below the sensor-noise floor
+    patch_int8: bool = False       # int8 operands for the descriptor's
+                                   # patch-extraction selection matmul;
+                                   # quantization is 1/127 px of lerp +
+                                   # ~0.5 intensity level, below the
+                                   # sensor-noise floor
     nms_radius: int = 2            # non-max suppression radius (pixels)
-    detector_approx_topk: bool = False  # TPU PartialReduce top-k (~10x
-                                        # faster than the exact sort
-                                        # lowering; >=95% recall on the
-                                        # weakest corners)
+    detector_approx_topk: bool = False  # lax.approx_max_k keypoint
+                                        # selection (>=95% recall on the
+                                        # weakest corners; exact top-k on
+                                        # backends without an approximate
+                                        # lowering)
 
     # ---- matcher (ref: CTracker.cpp:27-40) ----
     match_ratio: float = 0.8           # Lowe ratio test
@@ -169,8 +169,6 @@ class SfMConfig:
     ba_solver: str = "dense"
     ba_kmax: int = 16                  # "large": observations kept per
                                        # landmark in the dual tables
-    use_pallas_ba: bool = False        # "large": fused Pallas Schur matvec
-                                       # (TPU only; XLA one-hot path off)
     ba_cg_iterations: int = 15         # PCG iterations per LM step ("cg")
     # compact the landmark axis before the mapping-pass BA: only live
     # landmarks enter the normal equations, over a dense axis of this
@@ -186,11 +184,11 @@ class SfMConfig:
     # BA.
     ba_local_window: int = 0
     # periodic GLOBAL BA (all poses + structure free, implicit-Schur large
-    # solver with a host-built camera-window plan), run by the host driver
-    # every N keyframe insertions (0 = off).  The windowed-local +
-    # periodic-global schedule is how the engine reaches the 500-keyframe
-    # operating point the reference handled by running all-keyframe BA
-    # inline (CSfM.cpp:250-259) — unaffordable at 10x its map size.
+    # solver), run from the host (SfMEngine) every N keyframe insertions
+    # (0 = off).  The windowed-local + periodic-global schedule is how the
+    # engine reaches the 500-keyframe operating point the reference
+    # handled by running all-keyframe BA inline (CSfM.cpp:250-259) —
+    # unaffordable at 10x its map size.
     global_ba_every: int = 0
     global_ba_iterations: int = 10
     global_ba_cg_iterations: int = 25
@@ -242,12 +240,6 @@ class SfMConfig:
     guidance_hist_bins_s: int = 50
     guidance_ema_alpha: float = 0.9
     guidance_backproj_threshold: float = 0.01
-
-    # ---- kernels ----
-    # Use the Pallas fused matcher for map-scale (landmarks x detections)
-    # matching.  Default off: the XLA path is within ~10% and composes
-    # with vmap unconditionally; enable for single-scan serving.
-    use_pallas_matcher: bool = False
 
     # ---- parallel / distributed ----
     mesh_axis_map: str = "map"         # axis name for landmark sharding

@@ -1,77 +1,37 @@
 """Periodic global bundle adjustment over the full keyframe/landmark set.
 
 The reference runs all-keyframe BA inside every mapping pass
-(/root/reference/CSfM.cpp:250-259), which caps it at tens of keyframes.
+(reference CSfM.cpp:250-259), which caps it at tens of keyframes.
 At the 500-keyframe / 50k-landmark operating point (BASELINE.json config 3)
 the engine instead runs windowed-local BA per keyframe (config.py
 ba_local_window) and THIS pass — all poses and structure free — every
 ``global_ba_every`` keyframe insertions, driven by the host
 (SfMEngine / the CLI loop), like ORB-SLAM's global BA living outside the
-per-frame path.
-
-Split into two jitted pieces around a host step because the Pallas
-camera-window plan (ba/schur_pallas.SchurPlan) sizes a static kernel
-window from concrete observation tables: (1) build the dual tables on
-device, (2) host: sort landmarks by camera locality and size the window,
-(3) solve + write back."""
+per-frame path."""
 
 from __future__ import annotations
 
 import functools
-from types import SimpleNamespace
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 
 from ..config import SfMConfig
 from ..ba.core import observations_from_keyframes
-from ..ba.large import (ObsTables, build_lm_tables_device,
-                        build_tables_device, run_large_ba)
+from ..ba.large import build_tables_device, run_large_ba
 from .state import SfMState, CameraParams
 
 
-# Pallas landmark-tile size: larger tiles amortize per-tile dot overhead
-# (10.8 vs 23.7 ms/LM-iter at 4096 vs 256 on the 1k-KF bench); 2048 here
-# leaves VMEM headroom for data-dependent camera windows (8192 OOMs).
-_TILE = 2048
-
-
-class _PlanLeaves(NamedTuple):
-    perm: jnp.ndarray
-    inv_perm: jnp.ndarray
-    base: jnp.ndarray
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "use_pallas"))
-def _build(cfg: SfMConfig, state: SfMState, use_pallas: bool):
-    obs = observations_from_keyframes(state.kfs, state.lms.valid)
-    kmax = cfg.global_ba_kmax or cfg.ba_kmax
-    if use_pallas:
-        # fused path: camera-major tables are never read — skip their
-        # (serialized-scatter) build
-        lm_cam, lm_uv, lm_w, n_dropped = build_lm_tables_device(
-            obs, cfg.max_landmarks, kmax=kmax)
-        dummy = jnp.zeros((cfg.max_keyframes, 1), jnp.int32)
-        return ObsTables(lm_cam, lm_uv, lm_w, dummy, None, None), n_dropped
-    return build_tables_device(
-        obs, cfg.max_keyframes, cfg.max_landmarks,
-        nmax=cfg.max_keypoints, kmax=kmax)  # -> (tables, n_dropped)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("cfg", "use_pallas", "window",
-                                    "pad_width"),
+@functools.partial(jax.jit, static_argnames=("cfg",),
                    donate_argnames=("state",))
-def _solve(cfg: SfMConfig, state: SfMState, tables, n_dropped, plan_leaves,
-           cam, use_pallas: bool, window: int = 0, pad_width: int = 0):
-    plan = None
-    if use_pallas and plan_leaves is not None:
-        plan = SimpleNamespace(perm=plan_leaves.perm,
-                               inv_perm=plan_leaves.inv_perm,
-                               base=plan_leaves.base,
-                               window=window, pad_width=pad_width,
-                               tile=_TILE)
+def run_global_ba(cfg: SfMConfig, cam: CameraParams, state: SfMState):
+    """(state, stats): global BA on the engine state, gauge-fixed on the
+    oldest keyframe; ``stats.dropped_obs`` counts the observations that
+    overflowed the dual tables."""
+    obs = observations_from_keyframes(state.kfs, state.lms.valid)
+    tables, n_dropped = build_tables_device(
+        obs, cfg.max_keyframes, cfg.max_landmarks,
+        nmax=cfg.max_keypoints, kmax=cfg.global_ba_kmax or cfg.ba_kmax)
     kfs, lms = state.kfs, state.lms
     oldest = jnp.argmin(jnp.where(kfs.valid, kfs.frames.frame_no, 2**30))
     cam_free = kfs.valid.at[oldest].set(False)
@@ -83,36 +43,7 @@ def _solve(cfg: SfMConfig, state: SfMState, tables, n_dropped, plan_leaves,
         lam0=cfg.ba_lambda_init, lam_up=cfg.ba_lambda_up,
         lam_down=cfg.ba_lambda_down,
         huber_delta=cfg.global_ba_huber_delta or cfg.ba_huber_delta,
-        tol=cfg.ba_tol, pallas_matvec=use_pallas, schur_plan=plan,
-        pallas_tile=_TILE, fused_linearize=use_pallas)
+        tol=cfg.ba_tol)
     kfs = kfs._replace(frames=kfs.frames._replace(rvec=rv, tvec=tv))
     state = state._replace(kfs=kfs, lms=lms._replace(xyz=xyz))
     return state, stats._replace(dropped_obs=n_dropped)
-
-
-def run_global_ba(cfg: SfMConfig, cam: CameraParams, state: SfMState,
-                  use_pallas: bool = None):
-    """(state, stats): global BA on the engine state.  Host-level — builds
-    the camera-window plan between the two jitted stages."""
-    import numpy as np
-    from ..ba.schur_pallas import SchurPlan
-
-    if use_pallas is None:
-        use_pallas = cfg.use_pallas_ba
-    tables, n_dropped = _build(cfg, state, use_pallas)
-    leaves, window, pad_width = None, 0, 0
-    if use_pallas:
-        plan = SchurPlan(np.asarray(tables.lm_cam),
-                         np.asarray(tables.lm_w),
-                         cfg.max_keyframes, tile=_TILE)
-        leaves = _PlanLeaves(jnp.asarray(plan.perm),
-                             jnp.asarray(plan.inv_perm),
-                             jnp.asarray(plan.base))
-        # quantize the static window so repeated calls reuse the compile
-        # (a larger-than-needed window is still exact; pad_width grows
-        # with it so in-kernel slices stay in bounds)
-        window = int(-(-plan.window // 512) * 512)
-        pad_width = int(-(-(plan.pad_width + window - plan.window)
-                          // 512) * 512)
-    return _solve(cfg, state, tables, n_dropped, leaves, cam, use_pallas,
-                  window=window, pad_width=pad_width)

@@ -33,7 +33,6 @@ import jax.numpy as jnp
 
 from ..config import SfMConfig
 from ..features.match import match_features
-from ..features.match_pallas import match_features_pallas
 from ..geometry.triangulate import projection_matrix
 from ..ransac import ransac_pnp
 from .state import SfMState, CameraParams
@@ -73,9 +72,7 @@ def build_loop_probe(cfg: SfMConfig, cam: CameraParams):
         already = jnp.zeros((L0,), bool).at[
             jnp.where(kf_links >= 0, kf_links, L0)].set(True, mode="drop")
         old = lms.valid & (lms.kf_alive >= cfg.loop_min_age)
-        matcher = match_features_pallas if cfg.use_pallas_matcher \
-            else match_features
-        res = matcher(
+        res = match_features(
             state.rep_desc, jnp.zeros((lms.valid.shape[0], 2)), old,
             desc, xy, kp_valid,
             min_radius=0.0, max_radius=1e9,
@@ -121,7 +118,7 @@ def build_loop_probe(cfg: SfMConfig, cam: CameraParams):
         # measured unreliable — an honest negative result this replaces.)
         from ..geometry.camera import project, depths as cam_depths
         kp_linked = fr.kp_valid[slot] & (fr.landmark[slot] >= 0)
-        res2 = matcher(
+        res2 = match_features(
             state.rep_desc, jnp.zeros((L, 2)), old,
             desc, xy, kp_linked,
             min_radius=0.0, max_radius=1e9,

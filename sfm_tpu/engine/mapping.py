@@ -27,7 +27,6 @@ from ..config import SfMConfig
 from ..ba import BAMode, observations_from_keyframes, run_ba, run_ba_cg
 from ..ba.core import compact_ba_problem, scatter_back_landmarks
 from ..features.match import match_features
-from ..features.match_pallas import match_features_pallas
 from ..geometry.camera import project, depths
 from ..geometry.epipolar import fundamental_from_poses, filter_matches_epipolar
 from ..geometry.triangulate import triangulate_pair, projection_matrix
@@ -131,9 +130,7 @@ def _triangulate_all_pairs(cfg: SfMConfig, cam: CameraParams,
         old_f = jax.tree.map(lambda x: x[old_slot], fr)
         usable = (old_slot != new_slot) & ok
         src_valid = old_f.kp_valid & (old_f.landmark < 0) & usable
-        tri_matcher = match_features_pallas if cfg.use_pallas_matcher \
-            else match_features
-        res = tri_matcher(
+        res = match_features(
             old_f.desc, old_f.xy, src_valid,
             new_f.desc, new_f.xy, tgt_valid,
             min_radius=cfg.match_min_radius,
@@ -154,8 +151,7 @@ def _triangulate_all_pairs(cfg: SfMConfig, cam: CameraParams,
 
     # conflict resolution: per new-KF keypoint, the OLDEST keyframe's match
     # wins (the reference processes keyframes serially so earlier ones claim
-    # targets first).  One-hot column min — a scatter-min (.at[].min) here
-    # serializes its 4608 rows on TPU (~10 ms of an 88 ms pass)
+    # targets first), as a one-hot column min
     prio = jnp.where(slot_ok, fr.frame_no[slots], 2**30)  # [M]
     tgt = jnp.where(keeps, idxs, N)                        # [M,N]
     cand_prio = jnp.broadcast_to(prio[:, None], tgt.shape)
@@ -201,9 +197,8 @@ def _reobserve_all(cfg: SfMConfig, cam: CameraParams, state: SfMState,
 
     With ``mapping_reobs_capacity`` > 0 the landmark axis is first
     compacted to the landmarks visible in >= 1 window keyframe: the
-    matcher's [L, N] Hamming matrix dominates the pass at large-map
-    capacities (~58 ms of a 290 ms pass at 64k slots x 16 window KFs on
-    TPU) while only a few thousand landmarks are actually in view.
+    matcher's [L, N] Hamming matrix grows with the map capacity while
+    only a few thousand landmarks are actually in view.
     Overflowing candidates simply skip re-observation this pass (they
     retry on the next keyframe — opportunistic, not a correctness drop)."""
     kfs, lms = state.kfs, state.lms
@@ -249,9 +244,7 @@ def _reobserve_all(cfg: SfMConfig, cam: CameraParams, state: SfMState,
         in_img = ((proj[:, 0] >= 0) & (proj[:, 0] < W) &
                   (proj[:, 1] >= 0) & (proj[:, 1] < H) & (depth > 0))
         cand = valid_m & ~already & in_img & ok_slot
-        matcher = match_features_pallas if cfg.use_pallas_matcher \
-            else match_features
-        res = matcher(
+        res = match_features(
             rep_m, proj, cand, f.desc, f.xy, f.kp_valid & ~linked,
             min_radius=0.0, max_radius=cfg.max_reproj_error,
             max_distance=cfg.match_max_distance, ratio=cfg.match_ratio,
@@ -351,21 +344,11 @@ def mapping_pass(cfg: SfMConfig, cam: CameraParams, state: SfMState,
 
     if cfg.ba_solver == "large":
         # device-built tables + implicit-Schur PCG: the mapping-pass BA
-        # at 500+-keyframe capacities (VERDICT item 4)
-        from ..ba.large import (ObsTables, build_lm_tables_device,
-                                build_tables_device, run_large_ba)
-        if cfg.use_pallas_ba:
-            # the fused Pallas path never reads the camera-major tables;
-            # skipping them halves the (serialized-scatter) build cost
-            lm_cam, lm_uv, lm_w, n_dropped = build_lm_tables_device(
-                ba_obs, ba_xyz.shape[0], kmax=cfg.ba_kmax)
-            dummy = jnp.zeros((cfg.max_keyframes, 1))
-            tables = ObsTables(lm_cam, lm_uv, lm_w,
-                               dummy.astype(jnp.int32), None, None)
-        else:
-            tables, n_dropped = build_tables_device(
-                ba_obs, cfg.max_keyframes, ba_xyz.shape[0],
-                nmax=cfg.max_keypoints, kmax=cfg.ba_kmax)
+        # at 500+-keyframe capacities
+        from ..ba.large import build_tables_device, run_large_ba
+        tables, n_dropped = build_tables_device(
+            ba_obs, cfg.max_keyframes, ba_xyz.shape[0],
+            nmax=cfg.max_keypoints, kmax=cfg.ba_kmax)
         state = state._replace(ba_dropped_obs=n_dropped)
         rv, tv, xyz, stats = run_large_ba(
             cam.Kopt, kfs.frames.rvec, kfs.frames.tvec, ba_xyz, tables,
@@ -374,11 +357,7 @@ def mapping_pass(cfg: SfMConfig, cam: CameraParams, state: SfMState,
             cg_iterations=cfg.ba_cg_iterations,
             lam0=cfg.ba_lambda_init, lam_up=cfg.ba_lambda_up,
             lam_down=cfg.ba_lambda_down, huber_delta=cfg.ba_huber_delta,
-            tol=cfg.ba_tol, pallas_matvec=cfg.use_pallas_ba,
-            # fused Pallas linearization (planless full camera window
-            # here; the periodic global BA adds the SchurPlan windows);
-            # 2048-landmark tiles amortize per-tile dot overhead
-            pallas_tile=2048, fused_linearize=cfg.use_pallas_ba)
+            tol=cfg.ba_tol)
     elif cfg.ba_solver == "cg":
         rv, tv, xyz, stats = run_ba_cg(
             cam.Kopt, kfs.frames.rvec, kfs.frames.tvec, ba_xyz, ba_obs,

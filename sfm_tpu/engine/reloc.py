@@ -11,7 +11,6 @@ import jax.numpy as jnp
 
 from ..config import SfMConfig
 from ..features.match import match_features
-from ..features.match_pallas import match_features_pallas
 from ..ransac import ransac_pnp
 from .state import SfMState, zero_metrics, CameraParams, RUNNING
 
@@ -21,10 +20,8 @@ def reloc_step(cfg: SfMConfig, cam: CameraParams, state: SfMState,
     lms = state.lms
     key, k_pnp = jax.random.split(state.key)
     rep = state.rep_desc
-    matcher = match_features_pallas if cfg.use_pallas_matcher \
-        else match_features
     # global match: no window (radius covers the whole image)
-    res = matcher(
+    res = match_features(
         rep, jnp.zeros((lms.valid.shape[0], 2)), lms.valid,
         frame.desc, frame.xy, frame.kp_valid,
         min_radius=0.0, max_radius=1e9,

@@ -16,17 +16,12 @@ import jax.numpy as jnp
 
 from ..config import SfMConfig
 from ..features.match import match_features
-from ..features.match_pallas import match_features_pallas
 from ..geometry.camera import project
 from ..geometry.pnp import reprojection_errors
 from ..mapstore import (add_views, add_descriptors, insert_keyframe,
                         increment_age)
 from ..ransac import ransac_pnp
 from .state import SfMState, zero_metrics, CameraParams, RUNNING, LOST
-
-
-def _map_matcher(cfg: SfMConfig):
-    return match_features_pallas if cfg.use_pallas_matcher else match_features
 
 
 def widen_tracks(cfg: SfMConfig, cam: CameraParams, lms, curr, rep):
@@ -69,7 +64,7 @@ def widen_tracks(cfg: SfMConfig, cam: CameraParams, lms, curr, rep):
         lm_ids = jnp.arange(L, dtype=jnp.int32)
 
     tgt_valid = curr.kp_valid & ~(curr.landmark >= 0)
-    res = _map_matcher(cfg)(
+    res = match_features(
         rep_m, proj_m, cand_m, curr.desc, curr.xy, tgt_valid,
         min_radius=0.0, max_radius=cfg.max_reproj_error,
         max_distance=cfg.match_max_distance, ratio=cfg.match_ratio,
@@ -91,7 +86,7 @@ def tracking_step(cfg: SfMConfig, cam: CameraParams, state: SfMState,
 
     # match only the previous frame's map-linked features (CSfM.cpp:511-518)
     src_valid = prev.kp_valid & (prev.landmark >= 0)
-    res = _map_matcher(cfg)(
+    res = match_features(
         prev.desc, prev.xy, src_valid,
         curr.desc, curr.xy, curr.kp_valid,
         min_radius=cfg.match_min_radius, max_radius=cfg.match_max_radius,

@@ -1,5 +1,5 @@
 """Feature stack: scale-space FAST detection, oriented binary descriptors,
-and Hamming matching as popcount-matmul — the TPU-native replacement for the
+and Hamming matching as popcount-matmul — the accelerator replacement for the
 reference's brisk detector/extractor/matcher surface (SURVEY.md §2.11) and
 CTracker's matcher family (§2.2)."""
 

@@ -1,7 +1,7 @@
 """Packed binary descriptor utilities.
 
 Descriptors are [N, desc_bits//32] uint32.  The unpacked {0,1} float form is
-what the MXU consumes for Hamming matching (match.py) and what the landmark
+what the matmul consumes for Hamming matching (match.py) and what the landmark
 store accumulates for bit-majority representative descriptors (mapstore.py,
 replacing CMap's O(obs^2) Hamming medoid — the TODO at CMap.cpp:344)."""
 
@@ -32,7 +32,7 @@ def pack_bits(bits: jnp.ndarray) -> jnp.ndarray:
 
 
 def hamming_matrix(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
-    """Pairwise Hamming distances [N, M] via one MXU matmul.
+    """Pairwise Hamming distances [N, M] via one matmul.
 
     d(a, b) = |a| + |b| - 2 a.b  on unpacked {0,1} vectors.  bf16 operands
     are exact for bitplanes; f32 accumulate is exact for descriptor widths

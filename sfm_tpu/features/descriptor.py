@@ -1,12 +1,13 @@
-"""Oriented 512-bit binary descriptor, MXU-formulated.
+"""Oriented 512-bit binary descriptor, matmul-formulated.
 
-TPU-native replacement for brisk::BriskDescriptorExtractor (rotation- and
+Accelerator replacement for brisk::BriskDescriptorExtractor (rotation- and
 scale-invariant, 512-bit; CTracker.cpp:44-45).  Semantics: BRISK-style
 intensity comparisons on a fixed polar sampling pattern, steered by the
 intensity-centroid orientation, sampled at the keypoint's pyramid level.
 
-Formulation: gathers are poison on TPU, so sampling is restructured as
-matrix multiplies —
+Formulation: gathers were slow on the backend this was first tuned for,
+so sampling is restructured as matrix multiplies (whether the GPU wants a
+direct gather instead is ROADMAP Speed 4) —
  1. subpixel-centered patches via two bilinear-selection matmuls against
     the smoothed pyramid canvas (_patches_matmul);
  2. orientation = intensity centroid of the patch via two dense moment
@@ -19,7 +20,7 @@ matrix multiplies —
     [polar_samples, bits] matmul.
 The polar-shift steering replaces an earlier 32-bin masked-matmul design
 that computed every keypoint's bits under all 32 rotation bins (32x the
-needed MXU work — ~85 ms of a 2.1 s fleet tracking chunk, round-4 trace);
+needed matmul work);
 angle quantization is the same 360/N_PHI = 11.25 degrees, costing ~2-3
 bits of descriptor noise, far below the cross-frame sampling noise."""
 
@@ -120,7 +121,7 @@ def smooth(img: jnp.ndarray, k: int = 5) -> jnp.ndarray:
     """k x k box blur (the pre-descriptor smoothing BRIEF requires).
 
     Separable shift-add formulation: lax.conv on [H,W] images lowered to a
-    pathologically slow kernel on TPU (18 ms for a 5x5/[480,1200] conv).
+    pathologically slow kernel on the backend this was first tuned for.
     Shifts are static slices of an edge-padded copy rather than jnp.roll
     (roll = two-slice concat per offset, which blocks XLA fusion across
     the add chain — round 4; same change as detect.fast_score)."""
@@ -185,7 +186,7 @@ def _bits_from_patches(patches: jnp.ndarray, desc_bits: int,
     orientation (a per-keypoint [N_PHI, N_PHI] one-hot batched matmul),
     and take signs of fixed sample-pair differences (one matmul).
 
-    compute_dtype=bfloat16 halves the HBM/MXU cost of the matmuls;
+    compute_dtype=bfloat16 halves the memory and matmul cost;
     descriptor bits are signs of intensity differences, so bf16 rounding
     only flips near-zero comparisons (noise far below the cross-frame
     sampling noise)."""
@@ -239,14 +240,14 @@ def _patches_matmul(canvas_s: jnp.ndarray, cx: jnp.ndarray, cy: jnp.ndarray,
     """Subpixel-centered patches [N, PATCH, PATCH] via two bilinear
     selection matmuls (columns, then rows).
 
-    A vmapped per-keypoint dynamic_slice lowers to a SERIAL loop of tiny
-    [1, 34, 34] slices on TPU (53+ ms per fleet tracking chunk,
-    benchmarks/bench_fleet_trace.py); instead the patch window + fractional
-    lerp become TWO-nonzero selection operands feeding the MXU:
+    A vmapped per-keypoint dynamic_slice lowered to a serial loop of tiny
+    [1, 34, 34] slices on the backend this was first tuned for; instead the
+    patch window + fractional lerp become TWO-nonzero selection operands
+    of two matmuls:
         Z[n, c, h]       = sum_w canvas[h, w] * Cw[n, c, w]   (x-select+lerp)
         patch[n, r, c]   = sum_h Rw[n, r, h] * Z[n, c, h]     (y-select+lerp)
-    The iota-compare operands fuse into the matmuls (same trick as the BA
-    one-hot coupling ops, ba/large._onehot_f32); columns first because the
+    The iota-compare operands fuse into the matmuls (same trick as
+    ba/core._onehot_matmul_T); columns first because the
     canvas is wider than tall, minimizing the [N, PATCH, Hc] intermediate."""
     Hc, Wc = canvas_s.shape
     dt = canvas_s.dtype
@@ -261,7 +262,7 @@ def _patches_matmul(canvas_s: jnp.ndarray, cx: jnp.ndarray, cy: jnp.ndarray,
 
     xb = x0[:, None] + rr[None, :]                       # [N, PATCH]
     if int8:
-        # int8 MXU path for the DOMINANT first dot (contracts Wc=full
+        # int8 operands for the DOMINANT first dot (contracts Wc=full
         # canvas width; the second dot is only PATCH/Wc ~ 3% of its
         # FLOPs): canvas centered to [-128, 127], lerp weights scaled by
         # 127.  Quantization error: 1/127 px on the subpixel lerp and
@@ -286,10 +287,9 @@ def _patches_matmul(canvas_s: jnp.ndarray, cx: jnp.ndarray, cy: jnp.ndarray,
               * (1.0 - fx)[:, None, None]
               + (ww[None, None, :] == xb[:, :, None] + 1).astype(dt)
               * fx[:, None, None])                       # [N, PATCH, Wc]
-        # emit Z in the compute dtype directly: the MXU still accumulates
-        # in f32 internally, and a separate f32->bf16 convert of this
-        # [N, PATCH, Hc] intermediate cost ~33 ms per fleet tracking
-        # chunk (round-4 trace)
+        # emit Z in the compute dtype directly (the dot still accumulates
+        # in f32 internally): a separate f32->bf16 convert would write and
+        # re-read this [N, PATCH, Hc] intermediate
         Z = jax.lax.dot_general(
             Cw.reshape(N * PATCH, Wc), canvas_s,
             dimension_numbers=(((1,), (1,)), ((), ())),

@@ -1,6 +1,6 @@
 """Scale-space FAST corner detection -> fixed-size keypoint tensor.
 
-TPU-native replacement for the BRISK scale-space AGAST detector
+Accelerator replacement for the BRISK scale-space AGAST detector
 (brisk::BriskFeatureDetector(60, 6, true), CTracker.cpp:43).  The reference
 returns a dynamic keypoint vector; here detection is dense map algebra over
 an image pyramid followed by non-max suppression and a global top-K — a
@@ -36,9 +36,8 @@ class Keypoints(NamedTuple):
 
 def _avg2_matrix(n: int, dtype) -> jnp.ndarray:
     """[n//2, n] matrix averaging adjacent element pairs.  Constant, folded
-    by XLA; the downsample then runs as two small MXU matmuls — stride-2
-    slicing lowers to gathers on TPU and measures ~50x slower (0.8 ms per
-    quadrant term at 480x640, see docs/BENCH_NOTES.md)."""
+    by XLA; the downsample then runs as two small matmuls — stride-2
+    slicing lowered to gathers on the backend this was first tuned for."""
     m = np.zeros((n // 2, n), np.float32)
     idx = np.arange(n // 2)
     m[idx, 2 * idx] = 0.5
@@ -47,9 +46,10 @@ def _avg2_matrix(n: int, dtype) -> jnp.ndarray:
 
 
 def _down2(cur: jnp.ndarray) -> jnp.ndarray:
-    """2x2 box downsample via MXU: A @ cur @ B with averaging matrices.
-    precision='highest' keeps the means exact in f32 (the default MXU
-    passes round through bf16, which perturbs detector scores); the
+    """2x2 box downsample as matmuls: A @ cur @ B with averaging matrices.
+    precision='highest' keeps the means exact in f32 (reduced-precision
+    matmul passes round through bf16/TF32, which perturbs detector
+    scores); the
     matmuls are ~100 MFLOP, far below a noticeable cost either way."""
     h, w = cur.shape
     A = _avg2_matrix(h, cur.dtype)
@@ -79,9 +79,9 @@ def fast_score(img: jnp.ndarray, threshold: float) -> jnp.ndarray:
     A pixel is a corner if >= 9 contiguous circle pixels are all brighter
     than center + t or all darker than center - t.  Score is the AGAST-style
     sum of thresholded absolute differences over the circle, gated by the
-    corner test.  Pure shift/compare map algebra — VPU-friendly, no gathers.
-    Written as an expression DAG over 16 shifted reads (no stacked [16,H,W]
-    intermediate: stacking forced multi-MB materialization on TPU).
+    corner test.  Pure shift/compare map algebra, no gathers.  Written as
+    an expression DAG over 16 shifted reads (no stacked [16,H,W]
+    intermediate, which would be materialized in memory).
 
     Shifts are STATIC SLICES of one edge-padded copy, not jnp.roll: roll
     lowers to a two-slice concat per offset, and XLA cannot fuse the
@@ -95,7 +95,7 @@ def fast_score(img: jnp.ndarray, threshold: float) -> jnp.ndarray:
                for dy, dx in _CIRCLE]
     # per-pixel 16-bit circle bitboards (bit k = circle position k passes),
     # then the contiguous-run test as log-doubling shift-ANDs: ~9x fewer
-    # VPU ops than materializing all 16 arc starts
+    # elementwise ops than materializing all 16 arc starts
     one = jnp.asarray(1, jnp.int32)
     bright = jnp.zeros(img.shape, jnp.int32)
     dark = jnp.zeros(img.shape, jnp.int32)
@@ -244,9 +244,9 @@ def detect(img: jnp.ndarray, *, max_keypoints: int, levels: int = 4,
         1e-3 * (levels - 1 - lay.lvl_of_col)[None, :].astype(np.float32))
     s = jnp.where(s > 0, s + bias, 0.0)
     if approx_topk:
-        # exact top_k lowers to a full stable sort of H*WC scores (~0.9 ms
-        # at 480x640x4 levels); the TPU PartialReduce custom call is ~10x
-        # faster at >=95% recall — the misses are among the weakest corners
+        # exact top_k lowers to a full stable sort of H*WC scores; backends
+        # with an approximate top-k lowering trade >=95% recall (misses
+        # among the weakest corners) for speed, the others run exact top-k
         top_vals, idx = jax.lax.approx_max_k(
             s.reshape(-1), K, recall_target=0.95)
         idx = idx.astype(jnp.int32)

@@ -6,7 +6,7 @@ Every reference variant implements: best-match by Hamming distance subject to
 keep-best-per-target dedup (matches are not injective; the best source wins
 each target — the matchedIdx/matchDistance bookkeeping at
 CTracker.cpp:131-147).  Here that is a single fixed-shape kernel: distance
-matrix (MXU popcount-matmul) + masks + two argmin reductions.  Index-subset
+matrix (popcount-matmul) + masks + two argmin reductions.  Index-subset
 variants (e.g. "only previously matched features", CTracker.cpp:368-417)
 are expressed by passing the subset's validity mask."""
 

@@ -1,6 +1,6 @@
 """Pure-JAX multi-view geometry core.
 
-TPU-native replacement for the reference's OpenCV/Eigen/CVUtils math surface
+Accelerator replacement for the reference's OpenCV/Eigen/CVUtils math surface
 (SURVEY.md §2.9, §2.13): projection & (un)distortion, Rodrigues, DLT
 triangulation, H/F estimation + ORB-SLAM model scores, E/H decomposition with
 cheirality voting, and DLT/Gauss-Newton PnP.  Everything is fixed-shape,

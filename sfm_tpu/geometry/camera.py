@@ -81,9 +81,9 @@ def distort_norm(d: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
 def undistort_norm(d: jnp.ndarray, xy_dist: jnp.ndarray,
                    iters: int = 8) -> jnp.ndarray:
     """Invert the distortion by fixed-point iteration (cv::undistortPoints
-    does the same).  Unrolled: a lax.fori_loop here cost ~0.7 ms/iteration
-    of pure loop overhead on TPU for this tiny [N,2] body; unrolling lets
-    XLA fuse all iterations into one kernel (and fold them away entirely
+    does the same).  Unrolled: a lax.fori_loop pays per-iteration loop
+    overhead for this tiny [N,2] body; unrolling lets XLA fuse all
+    iterations into one kernel (and fold them away entirely
     when d is a compile-time zero constant)."""
     k1, k2, p1, p2, k3 = d[0], d[1], d[2], d[3], d[4]
     xy = xy_dist

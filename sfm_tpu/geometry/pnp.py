@@ -50,8 +50,8 @@ def pnp_dlt(K: jnp.ndarray, xyz: jnp.ndarray, uv: jnp.ndarray,
                     -y * X0, -y * X1, -y * X2, -y], axis=-1)
     A = jnp.concatenate([r1 * wf[:, None], r2 * wf[:, None]], axis=0)
     # null vector of A^T A by closed-form blocked inverse iteration
-    # (jnp.linalg.eigh is an EighTpu custom call that serializes inside
-    # the vmapped RANSAC hypothesis batch — see smallinv.min_eigvec)
+    # (jnp.linalg.eigh is a custom call that serialized inside the vmapped
+    # RANSAC hypothesis batch — see smallinv.min_eigvec)
     p = min_eigvec(A.T @ A)
     P = p.reshape(3, 4)
     M = P[:, :3]
@@ -176,7 +176,7 @@ def _pose_residual_jac(K, rvec, tvec, xyz, uv, w):
         jnp.stack([zero, fy * inv_z, -fy * p[:, 1] * inv_z * inv_z], -1),
     ], axis=1)
     # tiny batched matmul as broadcast multiply-reduce (a [N,2,3]x[N,3,3]
-    # dot_general lowers to a slow conv kernel on TPU — see smallinv._mm)
+    # dot_general lowered to a slow conv kernel — see smallinv._mm)
     A_w = jnp.sum(duv_dp[..., :, :, None] * (-_hat(RX))[..., None, :, :],
                   axis=-2)
     A = jnp.concatenate([A_w, duv_dp], -1) * w[:, None, None]

@@ -2,7 +2,7 @@
 
 Shared by the Grunert P3P solver (geometry/pnp.py) and the quaternion
 nearest-rotation solver (geometry/rotations.py).  Everything is
-elementwise VPU arithmetic: batched, jit/vmap-friendly, no custom calls."""
+elementwise arithmetic: batched, jit/vmap-friendly, no custom calls."""
 
 from __future__ import annotations
 

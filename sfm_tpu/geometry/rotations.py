@@ -43,12 +43,10 @@ def exp_so3(rvec: jnp.ndarray) -> jnp.ndarray:
     b = jnp.where(small, 0.5 - theta2 / 24.0, (1.0 - jnp.cos(theta)) / theta2)
     K = hat(rvec)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=rvec.dtype), K.shape)
-    # K @ K as a broadcast multiply-reduce: XLA lowers BATCHED 3x3
-    # dot_generals to dilated-convolution kernels that run far off the
-    # roofline on TPU (same pathology ba/residuals.bmm_small documents;
-    # this one showed up as ~56 ms of unnamed fusions per 64-scan fleet
-    # tracking chunk — round-5 HLO dump, fusion.1281/1282 feeding a
-    # `convolution ... lhs_dilate=64` at this line)
+    # K @ K as a broadcast multiply-reduce: XLA lowered BATCHED 3x3
+    # dot_generals to dilated-convolution kernels far off the roofline on
+    # the backend this was first tuned for (same pathology
+    # ba/residuals.bmm_small documents)
     KK = jnp.sum(K[..., :, :, None] * K[..., None, :, :], axis=-2)
     return eye + a * K + b * KK
 
@@ -104,8 +102,8 @@ def log_so3(R: jnp.ndarray) -> jnp.ndarray:
 
 
 def _mm4(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Tiny batched 4x4 matmul as a broadcast multiply-reduce (tiny batched
-    dot_generals lower to slow conv kernels on TPU)."""
+    """Tiny batched 4x4 matmul as a broadcast multiply-reduce (see
+    ba/residuals.bmm_small)."""
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
 
@@ -152,13 +150,13 @@ def nearest_rotation(M: jnp.ndarray) -> jnp.ndarray:
     """Closed-form nearest rotation: argmax_{R in SO(3)} tr(R^T M) for
     [..., 3, 3] M (= U diag(1, 1, det(UV^T)) V^T from the SVD of M).
 
-    jnp.linalg.svd on tiny batched 3x3 operands lowers to the QDWH
-    while-loop with Cholesky custom calls on TPU, which serializes inside
-    vmapped hot paths (measured 73+ ms per fleet tracking chunk in the PnP
-    hypothesis batch).  This is Horn's quaternion method instead: the
-    optimum is the largest eigenvector of a 4x4 symmetric matrix, computed
-    via the closed-form quartic characteristic polynomial (the matrix is
-    traceless, so the quartic is depressed) and an adjugate null-space
+    jnp.linalg.svd on tiny batched 3x3 operands lowered to an iterative
+    while-loop with custom calls on the backend this was first tuned for,
+    which serialized inside vmapped hot paths.  This is Horn's quaternion
+    method instead: the optimum is the largest eigenvector of a 4x4
+    symmetric matrix, computed via the closed-form quartic characteristic
+    polynomial (the matrix is traceless, so the quartic is depressed) and
+    an adjugate null-space
     extraction — pure elementwise arithmetic, batches perfectly."""
     from .poly import quartic_roots
 

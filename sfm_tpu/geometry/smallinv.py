@@ -1,11 +1,9 @@
 """Closed-form small-matrix inverses/solves.
 
-``jnp.linalg.inv``/``solve`` on 3x3 / 6x6 operands lower to
-LuDecompositionBlock / triangular-solve CUSTOM CALLS on TPU; inside a
-vmapped or scanned hot loop those serialize and dominate (measured 29 ms
-per fleet tracking chunk just inverting 3x3 intrinsics, see
-docs/BENCH_NOTES.md round 2).  These closed forms are pure VPU arithmetic:
-they fuse, vmap, and cost nanoseconds.
+``jnp.linalg.inv``/``solve`` on 3x3 / 6x6 operands lower to LU /
+triangular-solve custom calls; inside a vmapped or scanned hot loop those
+serialized and dominated on the backend this was first tuned for.  These
+closed forms are pure elementwise arithmetic: they fuse and vmap.
 
 Numerics: adjugate/det for 3x3 (exact to fp rounding), 2x2-of-3x3-blocks
 Schur for 6x6.  Fine for the well-conditioned, damped systems used here
@@ -43,8 +41,7 @@ def inv3x3(M: jnp.ndarray) -> jnp.ndarray:
 
 
 def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Tiny batched matmul as a broadcast multiply-reduce (tiny batched
-    dot_generals lower to slow conv kernels on TPU — see
+    """Tiny batched matmul as a broadcast multiply-reduce (see
     ba/residuals.bmm_small)."""
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
@@ -96,9 +93,9 @@ def solve12(M: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
 def min_eigvec(M: jnp.ndarray, iters: int = 3) -> jnp.ndarray:
     """Smallest-eigenvalue eigenvector of a symmetric PSD [..., 12, 12]
     matrix by regularized inverse iteration (each step a closed-form
-    blocked solve).  Replaces jnp.linalg.eigh on the DLT normal matrix —
-    the TPU EighTpu custom call serializes inside vmapped hypothesis
-    batches (73 ms per fleet tracking chunk, benchmarks/bench_fleet_trace).
+    blocked solve).  Replaces jnp.linalg.eigh on the DLT normal matrix,
+    whose custom call serialized inside vmapped hypothesis batches on
+    the backend this was first tuned for.
 
     For DLT null-space problems the smallest eigenvalue is ~0 while the
     rest are O(1) after Hartley normalization, so each iteration shrinks

@@ -34,8 +34,8 @@ def triangulate_pair(P0: jnp.ndarray, P1: jnp.ndarray,
     uv0, uv1: [N,2] pixel coords.  Returns [N,3] world points.
 
     Fixes the homogeneous coordinate w=1 and solves the 4x3 least-squares
-    system through closed-form 3x3 normal equations — an order of magnitude
-    cheaper than the eigendecomposition form on TPU, exact for finite
+    system through closed-form 3x3 normal equations — much cheaper than
+    the eigendecomposition form, exact for finite
     points (SLAM scans have no points at infinity; the homogeneous variant
     remains available as triangulate_pair_h)."""
     def one(uv0_i, uv1_i):
@@ -75,7 +75,7 @@ def _solve3_sym(M, rhs):
 def triangulate_pair_h(P0: jnp.ndarray, P1: jnp.ndarray,
                        uv0: jnp.ndarray, uv1: jnp.ndarray) -> jnp.ndarray:
     """Homogeneous two-view DLT (smallest eigenvector of A^T A) — handles
-    near-infinite points; slower on TPU than the inhomogeneous form."""
+    near-infinite points; slower than the inhomogeneous form."""
     def one(uv0_i, uv1_i):
         A = jnp.concatenate([_dlt_rows(P0, uv0_i), _dlt_rows(P1, uv1_i)])
         A = A / (jnp.linalg.norm(A, axis=1, keepdims=True) + 1e-12)

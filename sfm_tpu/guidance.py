@@ -8,7 +8,7 @@ histogram inside the mask, EMA-blends it with history (alpha 0.9),
 back-projects, thresholds by backproj/hullArea > 0.01, and fits an oriented
 bbox.
 
-TPU-native substitutions:
+Accelerator-friendly substitutions:
   - convex hull -> support-function polygon: inside(p) iff p.d_k <= max_i
     x_i.d_k for K fixed directions (exact as K grows; no sequential hull);
   - minAreaRect -> PCA of thresholded pixel coordinates (principal-axis

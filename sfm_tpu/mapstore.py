@@ -1,6 +1,6 @@
 """World state: per-frame feature records, keyframe SoA, landmark SoA.
 
-TPU-native redesign of CFrame/CKeyFrame/CMap (SURVEY.md §2.3-2.5):
+Fixed-shape redesign of CFrame/CKeyFrame/CMap (SURVEY.md §2.3-2.5):
 
 - ``Frame`` replaces CFrame: fixed-capacity keypoint arrays + pose + the
   2D->3D link vector (CFrame::_pts3DIdx, -1 = unlinked).  Frames are value

@@ -5,7 +5,7 @@ SURVEY.md §2.14; BASELINE.json's ">=70% BA scaling efficiency" target).
 Decomposition: landmarks (and their observations) are sharded over the
 ``map`` mesh axis; camera poses are replicated.  Each shard assembles its
 local normal-equation blocks, the reduced camera system
-S = U - W V^-1 W^T and its rhs are psum-reduced over ICI, every device
+S = U - W V^-1 W^T and its rhs are psum-reduced across devices, every device
 solves the (small, replicated) camera system redundantly, and landmark
 back-substitution happens shard-locally with zero further communication.
 One psum pair per LM iteration is the entire communication cost.
@@ -111,7 +111,7 @@ def build_dist_ba(mesh: Mesh, axis: str, n_cams: int, shard_size: int,
         def iter_body(_, carry):
             rvec, tvec, xyz_l, blocks, lam, cost, accepted = carry
             U_l, V_l, W_l, gc_l, gl_l = blocks
-            # global camera-block terms ride ICI: one fused psum for
+            # global camera-block terms: one fused psum for
             # {U, g_cam, Schur term, rhs term}
             Vinv = inv3_sym(_damp(V_l, lam))
             Y = jnp.einsum("clab,lbd->clad", W_l, Vinv)

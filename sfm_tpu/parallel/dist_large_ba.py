@@ -1,6 +1,6 @@
-"""Distributed implicit-Schur bundle adjustment: the pod-scale config
+"""Distributed implicit-Schur bundle adjustment: the multi-device config
 (BASELINE.json: "large synthetic SfM (5k keyframes, 1M landmarks):
-map-block-partitioned distributed BA on multi-host pod slice").
+map-block-partitioned distributed BA").
 
 Combines ba/large.py's dual-table implicit-Schur PCG with landmark
 sharding over the ``map`` mesh axis:
@@ -11,8 +11,9 @@ sharding over the ``map`` mesh axis:
     shard-local;
   - per-camera reductions (U, g_cam, and the W V^-1 W^T x term of every
     CG matvec) are shard-partial sums followed by one psum of a [C, 6]
-    vector (or [C,6,6] for U at linearization) over ICI — communication
-    per CG iteration is 24C bytes, independent of the landmark count.
+    vector (or [C,6,6] for U at linearization) across devices —
+    communication per CG iteration is 24C bytes, independent of the
+    landmark count.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ def build_dist_large_ba(mesh: Mesh, axis: str, n_cams: int, shard_size: int,
                         *, iterations: int = 10, cg_iterations: int = 25,
                         lam0: float = 1e-3, lam_up: float = 4.0,
                         lam_down: float = 2.0, huber_delta: float = 0.0,
-                        tol: float = 0.0, onehot_threshold: int = 4096):
+                        tol: float = 0.0):
     """Jitted landmark-sharded implicit-Schur LM solve.
 
     fn(K, rvec, tvec, xyz_sharded [L,3], tables (leading shard axis),
@@ -67,8 +68,7 @@ def build_dist_large_ba(mesh: Mesh, axis: str, n_cams: int, shard_size: int,
         cam_free_f = cam_free.astype(jnp.float32)
         lm_free_f = lm_free_l.astype(jnp.float32)
         L_l = xyz_l.shape[0]
-        wT_x, w_z, needs_cam_major = make_coupling_ops(
-            tables_l, n_cams, onehot_threshold=onehot_threshold)
+        wT_x, w_z = make_coupling_ops(tables_l)
 
         def linearize(rvec, tvec, xyz_l):
             R = exp_so3(rvec)
@@ -88,8 +88,7 @@ def build_dist_large_ba(mesh: Mesh, axis: str, n_cams: int, shard_size: int,
             V = jnp.sum(B_l[..., :, None] * B_l[..., None, :], axis=(1, 2))
             g_lm = -jnp.sum(B_l * rw_l[..., None], axis=(1, 2))
             W_l_ = jnp.sum(A_l[..., :, None] * B_l[..., None, :], axis=2)
-            W_c_ = (jnp.sum(A_c[..., :, None] * B_c[..., None, :], axis=2)
-                    if needs_cam_major else None)
+            W_c_ = jnp.sum(A_c[..., :, None] * B_c[..., None, :], axis=2)
             return (U, V, W_l_, W_c_, g_cam, g_lm), cost
 
         blocks0, cost0 = linearize(rvec, tvec, xyz_l)
@@ -105,12 +104,12 @@ def build_dist_large_ba(mesh: Mesh, axis: str, n_cams: int, shard_size: int,
                 t = wT_x(W_l, x)
                 z = bmv_small(Vinv, t)
                 # the Schur term sums over ALL landmarks -> psum the
-                # shard-partial per-camera contribution ([C, 6] over ICI)
-                y = jax.lax.psum(w_z(W_l, W_c, z), axis)
+                # shard-partial per-camera contribution ([C, 6])
+                y = jax.lax.psum(w_z(W_c, z), axis)
                 return Ux - y
 
             zg = bmv_small(Vinv, g_lm)
-            rhs = g_cam - jax.lax.psum(w_z(W_l, W_c, zg), axis)
+            rhs = g_cam - jax.lax.psum(w_z(W_c, zg), axis)
 
             M_inv = jnp.linalg.inv(Ud + 1e-6 * jnp.eye(6))
 

@@ -1,7 +1,8 @@
-"""Multi-host orchestration (SURVEY.md §2.14 item 4): the TPU-native
-equivalent of a NCCL/MPI bootstrap is jax.distributed.initialize + the
-multi-controller runtime; collectives then ride ICI within a slice and DCN
-across slices automatically via the mesh."""
+"""Multi-host orchestration (SURVEY.md §2.14 item 4): the bootstrap is
+jax.distributed.initialize + the multi-controller runtime; XLA then hands
+the mesh's collectives to NCCL, over NVLink within a host and the network
+across hosts.  Cards of one host are joined all to all, so a mesh follows
+the algorithm's axes, not a physical torus."""
 
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ from jax.sharding import Mesh
 def initialize_hosts(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Initialize the multi-controller runtime.  On TPU pods with standard
-    metadata all arguments are auto-detected; pass them explicitly for
-    manual clusters.  No-op when already initialized or single-process."""
+    """Initialize the multi-controller runtime.  Where the cluster
+    environment publishes its metadata all arguments are auto-detected;
+    pass them explicitly otherwise (coordinator ``host:port``, process
+    count and id).  No-op when already initialized or single-process."""
     explicit = not (coordinator is None and num_processes is None)
     try:
         if explicit:
@@ -51,7 +53,7 @@ def make_scan_map_mesh(n_scan: Optional[int] = None) -> Mesh:
     """Global 2D mesh over all devices (all hosts): 'scan' axis for
     data-parallel multi-scan batches, 'map' axis for landmark sharding.
     Defaults to scan = number of processes (so each host's scans stay
-    host-local and the map axis rides ICI within a host's devices)."""
+    host-local and the map axis stays within a host's devices)."""
     devs = np.array(jax.devices())
     n = len(devs)
     if n_scan is None:

@@ -38,7 +38,7 @@ def build_sharded_step(cfg: SfMConfig, cam: CameraParams, mesh: Mesh,
     """The batched step with the batch axis sharded over ``axis`` of the
     mesh: jit moves each scan's state+frame to its device; XLA inserts no
     collectives (scans are independent) so scaling is embarrassingly
-    parallel over ICI-connected chips."""
+    parallel over the mesh's devices."""
     vstep = build_batched_step(cfg, cam)
     return jax.jit(vstep, donate_argnums=(0,))
 

@@ -2,7 +2,7 @@
 
 ORB-SLAM runs tracking (latency-critical) and mapping+BA (throughput) on
 separate threads; the reference collapsed both into one synchronous
-``addFrame`` (CSfM.cpp:77-79).  Here the split is revived TPU-style:
+``addFrame`` (CSfM.cpp:77-79).  Here the split is revived across devices:
 tracking steps run on one device while the mapping pass for the latest
 keyframe runs as an independently dispatched XLA computation on another
 device, and the two state timelines are reconciled by a pure merge.

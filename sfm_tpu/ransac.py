@@ -1,4 +1,4 @@
-"""Batched-hypothesis RANSAC: the TPU-native replacement for OpenCV's
+"""Batched-hypothesis RANSAC: the accelerator replacement for OpenCV's
 adaptive-iteration RANSAC solvers (cv::findFundamentalMat CV_FM_RANSAC,
 cv::findHomography, cv::solvePnPRansac — CSfM.cpp:842-843, 552-560).
 

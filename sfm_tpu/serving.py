@@ -1,6 +1,6 @@
-"""Streaming scan service: the TPU analogue of the reference's iOS
-live-camera shell (SURVEY.md §2.8 — "a streaming client API that feeds
-frames to a (possibly remote) TPU engine").
+"""Streaming scan service: the server-side analogue of the reference's iOS
+live-camera shell (SURVEY.md §2.8 — a streaming client API that feeds
+frames to a possibly remote accelerator engine).
 
 A thin length-prefixed TCP protocol (no external deps):
 

@@ -137,3 +137,29 @@ def umeyama_ate(est_t, gt_t):
     scale = np.trace(np.diag(D) @ S) / max(var_e, 1e-12)
     resid = g - scale * e @ Rot.T
     return float(np.sqrt((resid ** 2).sum(1).mean()))
+
+
+def banded_ba_problem(n_cams, n_lms, obs_per_lm, seed=0, noise_px=0.0):
+    """A bundle-adjustment problem with a banded camera graph: cameras on
+    a line, each landmark seen by ``obs_per_lm`` consecutive cameras.
+    Returns a dict of NumPy arrays: K, the ground-truth-near start
+    (rvec0, tvec0, xyz0; rotations perturbed by 2 mrad, points by 5 cm)
+    and the COO observations (cam_idx, lm_idx, uv)."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-50, 50, n_lms), rng.uniform(-10, 10, n_lms),
+                  rng.uniform(20, 60, n_lms)], 1).astype(np.float32)
+    K = np.array([[525.0, 0, 320], [0, 525.0, 240], [0, 0, 1]], np.float32)
+    cam_t = np.stack([np.linspace(-40, 40, n_cams), np.zeros(n_cams),
+                      np.zeros(n_cams)], 1).astype(np.float32)
+    base = rng.integers(0, n_cams - obs_per_lm, n_lms)
+    lm_idx = np.repeat(np.arange(n_lms), obs_per_lm).astype(np.int32)
+    cam_idx = (base[:, None] + np.arange(obs_per_lm)[None, :]).reshape(-1)
+    cam_idx = cam_idx.astype(np.int32)
+    p = X[lm_idx] + cam_t[cam_idx]
+    uv = (p[:, :2] / p[:, 2:]) * 525.0 + np.array([320.0, 240.0])
+    uv = uv + rng.normal(0, noise_px, uv.shape) if noise_px else uv
+    rvec0 = np.full((n_cams, 3), 0.002, np.float32)
+    rvec0[0] = 0.0
+    xyz0 = X + rng.normal(0, 0.05, X.shape).astype(np.float32)
+    return dict(K=K, rvec0=rvec0, tvec0=cam_t, xyz0=xyz0, cam_idx=cam_idx,
+                lm_idx=lm_idx, uv=uv.astype(np.float32))

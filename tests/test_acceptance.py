@@ -2,7 +2,7 @@
 video->PLY workload (benchmarks/bench_acceptance.py) and the TUM-format
 dataset surface (benchmarks/bench_tum_format.py), both run as the real
 CLI subprocess with exit-code gates.  Slow tests (~2-4 min each on CPU);
-the TPU driver runs the same scripts at full scale."""
+chip_smoke.py runs the video->PLY path at full scale on the GPU."""
 
 import os
 import subprocess

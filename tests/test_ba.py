@@ -266,7 +266,7 @@ class TestCompaction:
 
 
 def test_cam_major_assembly_matches_scatter(rng):
-    """Scatter-free (cam-major reshape + one-hot MXU) assembly must produce
+    """Scatter-free (cam-major reshape + one-hot matmul) assembly must produce
     the same LM trajectory as the scatter path."""
     K, rvec, tvec, X, obs = make_ba_scene(rng, n_cams=3, n_pts=40)
     # make_ba_scene emits the canonical cam-major repeat layout

@@ -1,4 +1,4 @@
-"""Golden parity of every TPU BA solver against the independent f64 NumPy
+"""Golden parity of every JAX BA solver against the independent f64 NumPy
 reference solver (sfm_tpu/ba/reference.py) — the in-repo stand-in for the
 "ATE vs Ceres baseline" criterion (the Ceres solve it anchors:
 /root/reference/CTracker.cpp:670-702).
@@ -60,7 +60,7 @@ class TestReferenceSelfConsistency:
 
 
 class TestSolverParity:
-    """Each TPU solver must reach the f64 reference optimum: final cost
+    """Each JAX solver must reach the f64 reference optimum: final cost
     within 1%, free poses within tolerance."""
 
     def _check(self, rv, tv, cost, ref):

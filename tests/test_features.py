@@ -3,6 +3,7 @@ across shifts/rotations, matcher honors the reference's contract
 (window + ratio + dedup, CTracker.cpp:114-149)."""
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -83,7 +84,7 @@ class TestDetector:
         assert int(jnp.sum(kps.valid)) == 0
 
     def test_approx_topk_matches_exact_selection(self, rng):
-        # approx_topk uses the TPU PartialReduce lowering; selection must
+        # approx_topk may lower to an approximate top-k; selection must
         # heavily overlap the exact sort (misses only among weak corners)
         img = jnp.asarray(random_texture(rng))
         exact = detect(img, max_keypoints=256, levels=3)
@@ -244,21 +245,59 @@ class TestRotationInvariance:
         assert n > 30
 
 
-class TestPallasPatchExtract:
-    def test_matches_selection_matmul(self, rng):
-        """The (negative-result, unwired) Pallas patch extractor must stay
-        numerically equivalent to descriptor._patches_matmul so the
-        benchmark comparing them (bench_patch_extract.py) stays valid."""
-        import jax.numpy as jnp
-        from sfm_tpu.features.descriptor import _patches_matmul
-        from sfm_tpu.features.patches_pallas import extract_patches_pallas
-        # stay clear of the Pallas path's stricter bottom clamp (its
-        # 8-aligned 48-row window needs y0 <= H - 42)
-        canvas = jnp.asarray(rng.uniform(0, 255, (128, 256))
-                             .astype(np.float32))
-        cx = jnp.asarray(rng.uniform(20, 236, (8,)).astype(np.float32))
-        cy = jnp.asarray(rng.uniform(20, 80, (8,)).astype(np.float32))
-        a = np.asarray(_patches_matmul(canvas, cx, cy))
-        b = np.asarray(extract_patches_pallas(canvas, cx, cy,
-                                              interpret=True))
-        np.testing.assert_allclose(a, b, atol=1e-3)
+
+class TestMatchReference:
+    """match_features against the independent NumPy brute-force matcher
+    (sfm_tpu/features/reference.py): integer Hamming distances make the
+    comparison exact."""
+
+    CASES = {
+        "window": dict(min_radius=1.5, max_radius=40.0, max_distance=90.0,
+                       ratio=0.8),
+        "window_centers": dict(min_radius=0.0, max_radius=7.0,
+                               max_distance=90.0, ratio=0.8,
+                               centers=True),
+        "strict_ratio": dict(min_radius=0.0, max_radius=1e9,
+                             max_distance=200.0, ratio=0.6),
+        "loose_ratio_ties": dict(min_radius=0.0, max_radius=60.0,
+                                 max_distance=256.0, ratio=0.99, dups=4),
+    }
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    def test_exact_vs_brute_force(self, case):
+        from sfm_tpu.features.reference import brute_force_match, random_case
+        kw = dict(self.CASES[case])
+        centers, dups = kw.pop("centers", False), kw.pop("dups", 0)
+        rng = np.random.default_rng(len(case))
+        d0, xy0, v0, d1, xy1, v1 = random_case(rng, 300, 96)
+        if dups:
+            # many sources identical to one another: the per-target
+            # winner is decided by the lowest source index alone
+            d0[1:1 + dups] = d0[0]
+            xy0[1:1 + dups] = xy0[0]
+            v0[:1 + dups] = True
+        if centers:
+            kw["window_center0"] = (xy0 + rng.normal(0, 2, xy0.shape)
+                                    ).astype(np.float32)
+        got = jax.device_get(match_features(d0, xy0, v0, d1, xy1, v1, **kw))
+        idx, dist, mask = brute_force_match(d0, xy0, v0, d1, xy1, v1, **kw)
+        assert mask.sum() > 10
+        np.testing.assert_array_equal(got.mask, mask)
+        np.testing.assert_array_equal(got.idx, idx)
+        np.testing.assert_array_equal(got.dist, dist)
+
+    def test_brute_force_dedup_keeps_lowest_source(self):
+        """The reference itself: equal sources tie on distance and the
+        lowest source index keeps the target."""
+        from sfm_tpu.features.reference import brute_force_match
+        rng = np.random.default_rng(0)
+        d1 = rng.integers(0, 2**32, (4, 16), dtype=np.uint64).astype(
+            np.uint32)
+        d0 = np.repeat(d1[2:3], 3, axis=0)
+        xy = np.zeros((3, 2), np.float32)
+        idx, dist, mask = brute_force_match(
+            d0, xy, np.ones(3, bool), d1, np.zeros((4, 2), np.float32),
+            np.ones(4, bool), max_distance=90.0, ratio=0.8)
+        np.testing.assert_array_equal(idx, [2, -1, -1])
+        np.testing.assert_array_equal(mask, [True, False, False])
+        assert dist[0] == 0.0

@@ -2,6 +2,7 @@
 the dense-coupling solver, convergence at larger scale."""
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -145,3 +146,47 @@ class TestDeviceTables:
             cam_free=jnp.ones(4, bool).at[0].set(False),
             lm_free=jnp.ones(60, bool), iterations=15, cg_iterations=40)
         assert float(stats.final_cost) < 1e-2
+
+
+class TestCouplingOps:
+    """The two table-layout contractions of the implicit Schur complement
+    against a dense [C, L, 6, 3] coupling built from the same blocks."""
+
+    @staticmethod
+    def _problem(rng):
+        from sfm_tpu.ba.large import _blocks_lm_major, _blocks_cam_major
+        from sfm_tpu.geometry.rotations import exp_so3
+        K, rvec, tvec, X, obs = make_ba_scene(rng, n_cams=5, n_pts=40)
+        # a sparse visibility pattern: drop ~40% of the observations
+        w = jnp.asarray((rng.random(len(obs.w)) > 0.4).astype(np.float32))
+        obs = obs._replace(w=w)
+        t = build_tables(obs, 5, 40, nmax=40, kmax=5)
+        R = exp_so3(rvec)
+        ones_c, ones_l = jnp.ones(5), jnp.ones(40)
+        _, A_l, B_l, _, _ = _blocks_lm_major(K, R, tvec, X, t, ones_c,
+                                             ones_l, 0.0)
+        _, A_c, B_c, _, _ = _blocks_cam_major(K, R, tvec, X, t, ones_c,
+                                              ones_l, 0.0)
+        W_l = jnp.einsum("lkia,lkib->lkab", A_l, B_l)
+        W_c = jnp.einsum("cjia,cjib->cjab", A_c, B_c)
+        dense = np.zeros((5, 40, 6, 3))
+        lm_cam, lm_w = np.asarray(t.lm_cam), np.asarray(t.lm_w)
+        for l, k in zip(*np.nonzero(lm_w > 0)):
+            dense[lm_cam[l, k], l] += np.asarray(W_l[l, k])
+        return t, W_l, W_c, dense
+
+    @pytest.mark.parametrize("direction", ["wT_x", "w_z"])
+    def test_matches_dense(self, rng, direction):
+        from sfm_tpu.ba.large import make_coupling_ops
+        t, W_l, W_c, dense = self._problem(rng)
+        wT_x, w_z = make_coupling_ops(t)
+        if direction == "wT_x":
+            x = rng.normal(0, 1, (5, 6)).astype(np.float32)
+            got = wT_x(W_l, jnp.asarray(x))
+            want = np.einsum("clab,ca->lb", dense, x)
+        else:
+            z = rng.normal(0, 1, (40, 3)).astype(np.float32)
+            got = w_z(W_c, jnp.asarray(z))
+            want = np.einsum("clab,lb->ca", dense, z)
+        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max())

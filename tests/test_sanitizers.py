@@ -1,4 +1,4 @@
-"""Numeric-sanitizer CI hook (SURVEY.md §5: the TPU build's answer to the
+"""Numeric-sanitizer CI hook (SURVEY.md §5: this build's answer to the
 reference's absent TSan/ASan story is jit purity + NaN checking in CI).
 
 Runs a small end-to-end scan with ``jax_debug_nans`` enabled: any NaN

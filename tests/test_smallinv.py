@@ -1,5 +1,5 @@
 """Closed-form small-inverse parity vs LAPACK (the custom calls they
-replace on TPU hot paths)."""
+replace on hot paths)."""
 
 import numpy as np
 import jax.numpy as jnp

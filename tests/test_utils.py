@@ -81,3 +81,28 @@ class TestTUM:
 
     def test_intrinsics_present(self):
         assert set(TUM_INTRINSICS) == {"fr1", "fr2", "fr3"}
+
+
+class TestCompileCache:
+    def test_env_var_is_honoured(self, monkeypatch, tmp_path):
+        import jax
+        from sfm_tpu.utils.cache import enable_compile_cache
+        before = jax.config.jax_compilation_cache_dir
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert enable_compile_cache() == str(tmp_path)
+        # JAX reads the variable itself: nothing is set in code
+        assert jax.config.jax_compilation_cache_dir == before
+
+    def test_default_is_inside_the_checkout_and_stable(self, monkeypatch):
+        import os
+        import jax
+        import sfm_tpu
+        from sfm_tpu.utils.cache import default_cache_dir, \
+            enable_compile_cache
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(
+            sfm_tpu.__file__)))
+        path = enable_compile_cache()
+        assert path == os.path.join(root, ".jax_cache")
+        assert path == default_cache_dir() == enable_compile_cache()
+        assert jax.config.jax_compilation_cache_dir == path
